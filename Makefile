@@ -1,10 +1,9 @@
-.PHONY: test test-fast test-tpu doctest bench baseline lint
+.PHONY: test test-fast test-gpu smoke doctest bench baseline lint
 
 # Three serial shards, each a fresh process: the XLA CPU compiler
 # segfaults after a few hundred accumulated in-process compilations
-# (reproduced at different suite positions in round 5 — cumulative, not
-# test-specific; every crashing test passes in a fresh process), and the
-# round-5 pooled tune schedule raised the per-test compile count.
+# (cumulative, not test-specific; every crashing test passes in a fresh
+# process).
 test:
 	python -m pytest tests/test_[a-f]*.py -q
 	python -m pytest tests/test_[g-m]*.py -q
@@ -14,10 +13,14 @@ test:
 test-fast:
 	python -m pytest tests/ -q -x -k "not recovery and not parity"
 
-# Run the TPU-gated Pallas trajectory-kernel tests on the real chip
-# (they are skipped under the default CPU-forced suite).
-test-tpu:
-	LMC_TEST_PLATFORM=tpu python -m pytest tests/test_trajectory_pallas.py tests/test_autospec.py tests/test_hmc_pallas.py tests/test_fused_nuts.py tests/test_checkpoint.py tests/test_engine_election.py -q -rs
+# Run the tests marked `gpu` on a machine with an NVIDIA GPU (they skip
+# under the default CPU suite).
+test-gpu:
+	LMC_TEST_PLATFORM=gpu python -m pytest -m gpu tests/ -q -rs
+
+# The main path on one GPU, end to end (exits non-zero without a GPU).
+smoke:
+	python chip_smoke.py
 
 doctest:
 	python -m pytest --doctest-modules littlemcmc_tpu -q
@@ -31,7 +34,7 @@ baseline:
 # Enforced in CI (lint.yml): black --check, pydocstyle, mypy. Locally this
 # image has none of them; compileall is the offline floor.
 lint:
-	python -m compileall -q littlemcmc_tpu tests bench.py __graft_entry__.py
+	python -m compileall -q littlemcmc_tpu tests bench.py chip_smoke.py __graft_entry__.py
 	@command -v black >/dev/null && black --check --line-length 88 littlemcmc_tpu tests bench.py __graft_entry__.py || echo "black not installed (CI runs it)"
 	@command -v pydocstyle >/dev/null && pydocstyle littlemcmc_tpu || echo "pydocstyle not installed (CI runs it)"
 	@command -v mypy >/dev/null && mypy littlemcmc_tpu || echo "mypy not installed (CI runs it)"
@@ -44,6 +47,3 @@ suite:
 
 scaling:
 	python scripts/scaling_bench.py
-
-parity-pallas:
-	python scripts/validate_pallas_parity.py

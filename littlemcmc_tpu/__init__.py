@@ -1,9 +1,10 @@
-"""littlemcmc_tpu: a TPU-native HMC/NUTS inference engine.
+"""littlemcmc_tpu: an accelerator-native HMC/NUTS inference engine.
 
-A from-scratch re-design of littlemcmc (the reference package) for TPU:
-pure-function transition kernels over immutable pytree states, compiled
-once by XLA, ``vmap``-ed over thousands of chains, driven by ``lax.scan``,
-and sharded over a ``chains`` mesh axis for multi-chip / multi-host runs.
+A from-scratch re-design of littlemcmc (the reference package) for
+accelerators: pure-function transition kernels over immutable pytree
+states, compiled once by XLA, ``vmap``-ed over thousands of chains,
+driven by ``lax.scan``, and sharded over a ``chains`` mesh axis for
+multi-device / multi-host runs.
 
 Public API mirrors the reference's ``littlemcmc/__init__.py:19-29``.
 
@@ -41,11 +42,9 @@ from .base import NUTSConfig, HMCConfig, ChainState, init_chain_state
 from .nuts import build_nuts_kernel, NUTSInfo
 from .hmc import build_hmc_kernel, HMCInfo
 from .model import as_logp_grad, from_logp_fn, from_numpy_callable, from_torch_callable
-from .ops import make_pallas_model_spec, PallasModelSpec
 from .report import SamplerWarning, WarningType, warnings_from_stats
 from .exceptions import SamplingError, IntegrationError, ParallelSamplingError
 from . import models
-from . import ops
 from . import parallel
 from . import utils
 
@@ -76,8 +75,6 @@ __all__ = [
     "from_logp_fn",
     "from_numpy_callable",
     "from_torch_callable",
-    "make_pallas_model_spec",
-    "PallasModelSpec",
     "SamplerWarning",
     "WarningType",
     "warnings_from_stats",
@@ -85,7 +82,6 @@ __all__ = [
     "IntegrationError",
     "ParallelSamplingError",
     "models",
-    "ops",
     "parallel",
     "utils",
 ]

@@ -14,7 +14,7 @@ from typing import Callable, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from . import pytree
 
 from .integration import IntegratorState, recompute_with_momentum
 from .step_sizes import DualAverageState, dual_average_init, dual_average_update
@@ -41,11 +41,6 @@ class _BaseConfig:
     # Symplectic scheme: "leapfrog" (reference parity), "two_stage", or
     # "three_stage" minimal-norm splittings (see integration.py).
     integrator: str = "leapfrog"
-    # Chains per Pallas trajectory-kernel block (0 = backend heuristic).
-    # Smaller blocks shrink the lock-step tail — each block waits only
-    # for its own deepest tree — at the cost of more sequential grid
-    # steps; DEPTH_REBLOCK_STUDY.json has the measured trade-off curve.
-    chain_block: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +62,7 @@ class HMCConfig(_BaseConfig):
     max_steps: int = 1024
 
 
-@struct.dataclass
+@pytree.dataclass
 class ChainState:
     """Everything one chain carries between draws.
 
@@ -152,28 +147,3 @@ def finish_step(
         da=da,
         iter_count=state.iter_count + 1,
     )
-
-
-def pooled_tune_schedule(t: int) -> int:
-    """Iterations from tune position ``t`` to the next metric-refresh
-    boundary, for pooled boundary-cadence metrics (fused dense/low-rank).
-
-    The fused pooled engines refresh the shared metric (covariance
-    Cholesky / low-rank factor) only at chunk boundaries, so the chunking
-    IS the adaptation schedule. Boundaries sit at 10, 20, 50, 100, then
-    every 100: with C pooled chains the first boundary already sees
-    ``10*C`` covariance samples (10k+ at the flagship's 1024 chains —
-    ample for a 100-d covariance under the weight-10 identity prior), so
-    the expensive identity-metric prefix — trees run ~10x deeper before
-    the first refresh — shrinks from a flat cap's 50 draws to 10, while
-    late tune runs big chunks (fewer kernel launches and host
-    boundaries). Mirrors Stan's expanding adaptation windows
-    (reference: ``quadpotential.py:480-481,546-553`` window doubling).
-    The set of distinct chunk lengths stays small ({10, 30, 50, 100} for
-    any tune >= 100) because each distinct length compiles its own
-    fused program.
-    """
-    for b in (10, 20, 50, 100):
-        if t < b:
-            return b - t
-    return 100 - (t % 100)

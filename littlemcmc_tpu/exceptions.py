@@ -11,7 +11,7 @@ class IntegrationError(RuntimeError):
     """Numerical errors during leapfrog integration.
 
     Kept for API parity with the reference (``integration.py:28-31``); the
-    TPU integrator never raises it — non-finite values propagate through
+    on-device integrator never raises it — non-finite values propagate through
     divergence masks instead.
     """
 

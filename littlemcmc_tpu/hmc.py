@@ -1,6 +1,6 @@
 """Classic Hamiltonian Monte Carlo transition kernel (fixed-shape, XLA-ready).
 
-TPU-native counterpart of the reference's ``littlemcmc/hmc.py``. The
+Counterpart of the reference's ``littlemcmc/hmc.py``. The
 jittered-path-length trajectory loop (``hmc.py:140-150``) becomes a
 ``lax.while_loop`` with a data-dependent (but bounded) step count;
 divergence detection (``hmc.py:151-162``) is mask-based.
@@ -39,8 +39,6 @@ class HMCInfo(NamedTuple):
     path_length: jax.Array
     accepted: jax.Array
     model_logp: jax.Array
-
-
 
 
 def run_hmc_trajectory(
@@ -93,31 +91,14 @@ def run_hmc_trajectory(
 
 
 @functools.lru_cache(maxsize=512)
-def build_hmc_kernel(logp_grad_fn: LogpGradFn, config: HMCConfig = HMCConfig(),
-                     trajectory_spec=None, mesh=None,
-                     chain_axis: str = "chains",
-                     trajectory_interpret: bool = False):
+def build_hmc_kernel(logp_grad_fn: LogpGradFn, config: HMCConfig = HMCConfig()):
     """Build the chain-batched HMC transition ``kernel(states, tuning)``.
 
     The per-chain transition (below) is batched with ``vmap`` — HMC's
     trajectory loop has no stack machinery, so ``vmap``'s masked
     while-loop batching is already the right lowering. Memoized on
     ``(logp_grad_fn, config)`` — see ``build_nuts_kernel``.
-
-    ``trajectory_spec`` (a :class:`littlemcmc_tpu.ops.PallasModelSpec`)
-    switches the whole trajectory to the single-kernel Pallas path
-    (:mod:`littlemcmc_tpu.ops.hmc_trajectory_pallas`): the jittered-
-    length leapfrog loop and the Metropolis accept run on core with the
-    model inlined and, for small n, K chains lane-packed per VPU row.
-    Diagonal metrics only; the jittered path length itself is computed
-    in XLA (threefry) so both paths draw identically *distributed* step
-    counts (different key-consumption order, so not bitwise-equal draws).
     """
-    if trajectory_spec is not None:
-        return _build_pallas_hmc_kernel(
-            logp_grad_fn, config, trajectory_spec, mesh, chain_axis,
-            trajectory_interpret,
-        )
 
     def kernel(state: ChainState, tuning: jax.Array) -> Tuple[ChainState, HMCInfo]:
         key, k_momentum, k_traj, k_sr = jax.random.split(state.rng_key, 4)
@@ -166,388 +147,3 @@ def build_hmc_kernel(logp_grad_fn: LogpGradFn, config: HMCConfig = HMCConfig(),
         return new_state, info
 
     return jax.vmap(kernel, in_axes=(0, None))
-
-
-def _build_pallas_hmc_kernel(logp_grad_fn, config, trajectory_spec, mesh,
-                             chain_axis, trajectory_interpret):
-    """Batched HMC transition over the Pallas whole-trajectory op."""
-    from .nuts import _diag_inverse_mass, _split_each
-    from .ops.hmc_trajectory_pallas import build_hmc_trajectory_op
-    from .ops.nuts_trajectory_pallas import resolve_pack
-    from .step_sizes import dual_average_update
-
-    def kernel(states: ChainState, tuning) -> Tuple[ChainState, HMCInfo]:
-        # k_seed is dedicated to the in-kernel PRNG: k_traj is consumed by
-        # the XLA path-length uniform below, and a consumed threefry key
-        # must not be reused as seed material (same discipline as the
-        # NUTS path's dedicated k_tree).
-        key_next, k_mom, k_traj, k_sr, k_seed = _split_each(states.rng_key, 5)
-        dtype = states.q.dtype
-
-        p0 = jax.vmap(lambda pot, k: pot.sample_momentum(k))(states.potential, k_mom)
-        adapting = jnp.logical_and(tuning, config.adapt_step_size)
-        step_size = states.da.current(adapting)  # (C,)
-        if config.step_rand is not None:
-            step_size = jax.vmap(config.step_rand)(step_size, k_sr)
-
-        # Jittered path length in XLA (threefry), identical to the vmap
-        # path's distribution (reference ``hmc.py:141-143``).
-        path_u = jax.vmap(lambda k: jax.random.uniform(k, dtype=dtype))(k_traj)
-        path_length = path_u * config.path_length
-        n_steps = jnp.clip(
-            (path_length / step_size).astype(jnp.int32), 1, config.max_steps
-        )
-
-        var_b = _diag_inverse_mass(states.potential)
-        if var_b is None:
-            raise ValueError(
-                "the Pallas HMC trajectory path requires a diagonal metric "
-                "(QuadPotentialDiag / QuadPotentialDiagAdapt)"
-            )
-
-        n_model = states.q.shape[-1]
-        n_chain_devs = 1
-        if mesh is not None:
-            n_chain_devs = (mesh.shape[chain_axis]
-                            if chain_axis in mesh.shape else mesh.size)
-        C_local = states.q.shape[0] // n_chain_devs
-        pack = resolve_pack(trajectory_spec, n_model, C_local)
-        traj_op = build_hmc_trajectory_op(
-            trajectory_spec, n_model, config.Emax, config.integrator,
-            chain_block=(config.chain_block or
-                         (256 * pack if pack > 1 else 512)),
-            interpret=trajectory_interpret, pack=pack,
-        )
-        seed = jax.random.key_data(k_seed)[0].astype(jnp.int32)
-        if mesh is not None:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec
-
-            Pc = PartitionSpec(chain_axis)
-            Pr = PartitionSpec()
-
-            def traj_local(q, p, g, lp, eps, nst, var, sd):
-                dev = jax.lax.axis_index(chain_axis).astype(jnp.int32)
-                sd = sd + jnp.stack([dev * jnp.int32(1000003), jnp.int32(0)])
-                return traj_op(q, p, g, lp, eps, nst, var, sd)
-
-            traj_call = shard_map(
-                traj_local, mesh=mesh,
-                in_specs=(Pc, Pc, Pc, Pc, Pc, Pc, Pc, Pr),
-                out_specs=Pc, check_vma=False,
-            )
-        else:
-            traj_call = traj_op
-        outs = traj_call(states.q, p0, states.q_grad, states.logp,
-                         step_size, n_steps, var_b, seed)
-
-        q_new = outs["q"].astype(dtype)
-        g_new = outs["grad"].astype(dtype)
-        lp_new = outs["logp"].astype(dtype)
-        accept_stat = outs["accept_stat"].astype(dtype)
-
-        da = dual_average_update(
-            states.da, accept_stat, adapting,
-            target=config.target_accept, gamma=config.gamma,
-            k=config.k, t0=config.t0,
-        )
-        potential = jax.vmap(lambda pot, q, g: pot.update(q, g, tuning))(
-            states.potential, q_new, g_new
-        )
-
-        new_states = ChainState(
-            rng_key=key_next,
-            q=q_new,
-            q_grad=g_new,
-            logp=lp_new,
-            potential=potential,
-            da=da,
-            iter_count=states.iter_count + 1,
-        )
-        info = HMCInfo(
-            step_size=jnp.exp(da.log_step),
-            n_steps=n_steps,
-            tune=jnp.broadcast_to(tuning, accept_stat.shape),
-            step_size_bar=jnp.exp(da.log_bar),
-            accept=accept_stat,
-            diverging=outs["diverging"],
-            energy_error=outs["energy_change"].astype(dtype),
-            energy=outs["energy"].astype(dtype),
-            path_length=path_length,
-            accepted=outs["accepted"],
-            model_logp=outs["logp_end"].astype(dtype),
-        )
-        return new_states, info
-
-    return kernel
-
-
-def build_fused_hmc_runner_factory(
-    config: HMCConfig,
-    trajectory_spec,
-    potential_template,
-    model_ndim: int,
-    local_chains: int,
-    mesh=None,
-    chain_axis: str = "chains",
-    interpret: bool = False,
-    pooled: bool = False,
-):
-    """Chunk-runner factory for the fused multi-draw Pallas HMC kernel.
-
-    Same contract as :func:`littlemcmc_tpu.nuts.build_fused_nuts_runner_factory`
-    (one ``pallas_call`` per chunk: on-core momentum refresh, jittered
-    path length, dual averaging, Welford adaptation), with HMC's stats.
-    Metric support: diagonal — per-chain or pooled — every phase fused
-    (pooled diag runs the exact per-chain Welford updates on core and
-    pools the shared metric once per chunk boundary); static dense
-    ``QuadPotentialFull`` (every phase, momentum/velocity matmuls);
-    pooled dense (``pooled=True`` + ``QuadPotentialFullAdapt``): every
-    phase fused, block-local pooled covariance in VMEM with the exact
-    Chan combine + metric refresh at chunk boundaries (see the NUTS
-    factory).
-    """
-    from .nuts import (_dense_boundary_potential, _fused_welford_tuple,
-                       _pool_dense_welford, _scale_dense_welford,
-                       _split_each)
-    from .ops.fused_hmc_pallas import build_fused_hmc_op
-    from .ops.nuts_trajectory_pallas import resolve_pack
-    from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt,
-                                QuadPotentialFull, QuadPotentialFullAdapt,
-                                QuadPotentialLowRankAdapt,
-                                WelfordVariance)
-    from .step_sizes import DualAverageState
-
-    diag_adapt = isinstance(potential_template, QuadPotentialDiagAdapt)
-    diag_static = isinstance(potential_template, QuadPotentialDiag)
-    dense_static = isinstance(potential_template, QuadPotentialFull)
-    dense_pooled = pooled and isinstance(potential_template,
-                                         QuadPotentialFullAdapt)
-    lowrank_pooled = pooled and isinstance(potential_template,
-                                           QuadPotentialLowRankAdapt)
-    if not (diag_adapt or diag_static or dense_static or dense_pooled
-            or lowrank_pooled):
-        raise ValueError(
-            "the fused HMC kernel requires a diagonal metric, a static "
-            "dense metric (QuadPotentialFull), or a cross-chain pooled "
-            "adaptive metric")
-    dense = dense_static or dense_pooled
-    metric = ("dense" if dense
-              else "lowrank" if lowrank_pooled else "diag")
-    lowrank_k = potential_template.rank if lowrank_pooled else 0
-    # pooled diag keeps per-chain accumulators (parallel/cross_chain.py),
-    # so tune chunks fuse with the exact per-chain updates on core and
-    # pool once per chunk boundary — see the NUTS factory for details.
-    # The low-rank metric's diagonal part follows the same scheme; its
-    # shared factor freezes per chunk and refreshes at boundaries.
-    adapt_metric = diag_adapt or lowrank_pooled
-    window_multiplier = (potential_template.window_multiplier
-                         if (adapt_metric or dense_pooled) else 1.0)
-    pack = resolve_pack(trajectory_spec, model_ndim, local_chains) \
-        if not (dense or lowrank_pooled) else 1
-
-    @functools.lru_cache(maxsize=64)
-    def factory(chunk: int, tuning: bool, collect: bool):
-        adapt_dense = bool(tuning) and dense_pooled
-        op = build_fused_hmc_op(
-            trajectory_spec, model_ndim, chunk, bool(tuning),
-            adapt_metric, config, window_multiplier,
-            chain_block=(config.chain_block or 256),
-            interpret=interpret, pack=pack, collect_trace=bool(collect),
-            metric=metric, adapt_dense=adapt_dense, lowrank_k=lowrank_k,
-        )
-
-        def call_op(states: ChainState, seed, dense_welford=None):
-            pot = states.potential
-            linv = None
-            lowrank_fac = None
-            if dense:
-                var = pot.cov[0]
-                linv = jax.scipy.linalg.solve_triangular(
-                    pot.chol[0], jnp.eye(var.shape[0], dtype=var.dtype),
-                    lower=True)
-            elif lowrank_pooled:
-                var = pot.var
-                lowrank_fac = (pot.vecs[0], pot.lam[0], pot.alpha[0])
-            elif diag_adapt:
-                var = pot.var
-            else:
-                var = pot.v
-            welford = _fused_welford_tuple(pot) if adapt_metric else None
-            return op(
-                states.q, states.q_grad, states.logp,
-                states.iter_count.astype(jnp.float32),
-                states.da.log_step, states.da.log_bar, states.da.hbar,
-                states.da.count.astype(jnp.float32), states.da.mu,
-                var, welford, seed, linv=linv, dense_welford=dense_welford,
-                lowrank_fac=lowrank_fac,
-            )
-
-        if mesh is not None:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec
-
-            Pc = PartitionSpec(chain_axis)
-            Pr = PartitionSpec()
-
-            def call_local(states, seed, dense_welford=None):
-                dev = jax.lax.axis_index(chain_axis).astype(jnp.int32)
-                seed = seed + jnp.stack([dev * jnp.int32(1000003),
-                                         jnp.int32(0)])
-                return call_op(states, seed, dense_welford)
-
-            # per-draw streams are (T, C, ...): chain-sharded on axis 1;
-            # pooled-dense block states are device-stacked on axis 0 and
-            # the shared counters replicated (keyed by name; see the
-            # NUTS factory for why not shapes)
-            _PER_DRAW = frozenset({"trace", "step_size", "step_size_bar", "n_steps", "accept", "diverging", "energy_error", "energy", "path_length", "accepted", "model_logp"})
-            _REPLICATED = frozenset({"n_samples", "prev_update", "window"}
-                                    if adapt_dense else ())
-
-            def sharded_call(states, seed, dense_welford=None):
-                from jax.tree_util import tree_map_with_path
-
-                in_specs = (jax.tree.map(lambda _: Pc, states,
-                                         is_leaf=lambda x: x is None), Pr)
-                args = (states, seed)
-                if dense_welford is not None:
-                    nd = float(mesh.shape[chain_axis]
-                               if chain_axis in mesh.shape else mesh.size)
-                    dense_welford = _scale_dense_welford(dense_welford, nd)
-                    in_specs += (jax.tree.map(lambda _: Pr, dense_welford),)
-                    args += (dense_welford,)
-                out_shapes = jax.eval_shape(call_op, *args)
-                out_specs = tree_map_with_path(
-                    lambda path, sh: (PartitionSpec(None, chain_axis)
-                                      if str(path[0].key) in _PER_DRAW
-                                      else Pr if str(path[0].key) in _REPLICATED
-                                      else Pc),
-                    out_shapes,
-                )
-                return shard_map(
-                    call_local, mesh=mesh, in_specs=in_specs,
-                    out_specs=out_specs, check_vma=False,
-                )(*args)
-
-            runner_call = sharded_call
-        else:
-            runner_call = call_op
-
-        @jax.jit
-        def run_chunk(states: ChainState):
-            # Chunk-invariant draw streams — same derivation as the fused
-            # NUTS engine (see nuts.py run_chunk): the stream is keyed on
-            # (chain key, global iteration), never on chunk boundaries,
-            # so ``progress_every`` cannot change the draws.
-            k0 = jax.tree.map(lambda x: x[0], states.rng_key)
-            words = jax.random.key_data(
-                jax.random.fold_in(k0, 0x46AE)).astype(jnp.int32)
-            iter0 = states.iter_count.reshape(-1)[0].astype(jnp.int32)
-            seed = jnp.stack(
-                [words[0] + iter0 * jnp.int32(15485863), words[1]])
-            key_next = states.rng_key
-            dense_welford = (_pool_dense_welford(states.potential)
-                             if adapt_dense else None)
-            if dense_welford is not None:
-                outs = runner_call(states, seed, dense_welford)
-            else:
-                outs = runner_call(states, seed)
-
-            da = DualAverageState(
-                log_step=outs["da_log_step"],
-                log_bar=outs["da_log_bar"],
-                hbar=outs["da_hbar"],
-                count=outs["da_count"].astype(jnp.int32),
-                mu=outs["da_mu"],
-            )
-            if adapt_metric:
-                var = outs["var"]
-                stds = jnp.sqrt(var)
-                fg = WelfordVariance(
-                    w_sum=outs["fg_w"], w_sum2=outs["fg_w2"],
-                    mean=outs["fg_mean"], raw_var=outs["fg_raw"])
-                bg = WelfordVariance(
-                    w_sum=outs["bg_w"], w_sum2=outs["bg_w2"],
-                    mean=outs["bg_mean"], raw_var=outs["bg_raw"])
-                if lowrank_pooled:
-                    # buf_fill=0 marks the ring buffer stale (the fused
-                    # kernel never maintains it; see the NUTS factory)
-                    potential = states.potential.replace(
-                        var=var, stds=stds, inv_stds=1.0 / stds,
-                        fg=fg, bg=bg,
-                        n_samples=outs["n_samples"].astype(jnp.int32),
-                        window=outs["window"].astype(jnp.int32),
-                        buf_fill=jnp.zeros_like(states.potential.buf_fill),
-                    )
-                    if tuning:
-                        from .parallel.cross_chain import (
-                            lowrank_boundary_refresh)
-
-                        potential = lowrank_boundary_refresh(
-                            potential, outs["q"])
-                else:
-                    potential = QuadPotentialDiagAdapt(
-                        var=var, stds=stds, inv_stds=1.0 / stds,
-                        fg=fg, bg=bg,
-                        n_samples=outs["n_samples"].astype(jnp.int32),
-                        window=outs["window"].astype(jnp.int32),
-                        window_multiplier=window_multiplier,
-                    )
-                    if pooled and tuning:
-                        from .parallel.cross_chain import (
-                            cross_chain_potential_pool)
-
-                        potential = cross_chain_potential_pool(
-                            potential, jnp.asarray(True))
-            elif adapt_dense:
-                potential = _dense_boundary_potential(
-                    states.potential, outs, dense_welford[0],
-                    states.q.shape[0])
-            else:
-                potential = states.potential
-
-            new_states = ChainState(
-                rng_key=key_next,
-                q=outs["q"],
-                q_grad=outs["grad"],
-                logp=outs["logp"],
-                potential=potential,
-                da=da,
-                iter_count=outs["iter_count"].astype(jnp.int32),
-            )
-
-            tuning_arr = jnp.full(outs["accept"].shape, bool(tuning))
-            info = HMCInfo(
-                step_size=outs["step_size"],
-                n_steps=outs["n_steps"],
-                tune=tuning_arr,
-                step_size_bar=outs["step_size_bar"],
-                accept=outs["accept"],
-                diverging=outs["diverging"],
-                energy_error=outs["energy_error"],
-                energy=outs["energy"],
-                path_length=outs["path_length"],
-                accepted=outs["accepted"],
-                model_logp=outs["model_logp"],
-            )
-            ndiv = jnp.sum(info.diverging).astype(jnp.int32)
-            out = (outs["trace"], info) if collect else None
-            return new_states, out, ndiv
-
-        return run_chunk
-
-    if dense_pooled or lowrank_pooled:
-        # Boundary-cadence adaptation: the shared metric (covariance /
-        # low-rank factor) refreshes only at chunk boundaries, so cap
-        # fused TUNE chunks to keep a Stan-like refresh cadence (~6+
-        # refreshes over a default-length tune; with C pooled chains each
-        # boundary already sees C*cap fresh samples). Without the cap a
-        # single-chunk tune would adapt the step size against the initial
-        # metric for the whole phase (measured: final step 0.53 vs 1.00,
-        # trees ~2x deeper in the draw phase). Early boundaries (10/20/50)
-        # refine the flat cap — see base.pooled_tune_schedule.
-        factory.tune_chunk_cap = 50
-        from .base import pooled_tune_schedule
-
-        factory.tune_chunk_schedule = pooled_tune_schedule
-    return factory

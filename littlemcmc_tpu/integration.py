@@ -1,6 +1,6 @@
 """Leapfrog integration as pure functions over an immutable phase-space state.
 
-TPU-native counterpart of the reference's ``littlemcmc/integration.py``.
+Counterpart of the reference's ``littlemcmc/integration.py``.
 The reference's ``CpuLeapfrogIntegrator`` raises ``IntegrationError`` on
 scipy LinAlg failures (``integration.py:86-98``); under XLA there are no
 exceptions — non-finite values propagate through the state and are caught

@@ -1,4 +1,4 @@
-"""Log-space math utilities for the TPU-native samplers.
+"""Log-space math utilities for the samplers.
 
 Re-designed counterpart of the reference's ``littlemcmc/math.py:21-40``:
 instead of host-side ``np.random`` Bernoulli trials, every stochastic
@@ -11,7 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-__all__ = ["logbern", "log1mexp", "logdiffexp", "tree_select", "round_up"]
+__all__ = ["logbern", "log1mexp", "logdiffexp", "tree_select"]
 
 
 def logbern(key: jax.Array, log_p: jax.Array) -> jax.Array:
@@ -61,37 +61,3 @@ def logdiffexp(a: jax.Array, b: jax.Array) -> jax.Array:
 def tree_select(pred, on_true, on_false):
     """Elementwise ``where`` over matching pytrees (scalar or array pred)."""
     return jax.tree.map(lambda t, f: jnp.where(pred, t, f), on_true, on_false)
-
-
-def round_up(x: int, m: int) -> int:
-    """Round ``x`` up to the next multiple of ``m`` (tile alignment)."""
-    return ((x + m - 1) // m) * m
-
-
-def dot_f32x3(x: jax.Array, w: jax.Array) -> jax.Array:
-    """``x @ w`` in float32 via three bf16 MXU passes (manual HIGH).
-
-    Mosaic lowers ``precision="highest"`` as six bf16 passes and has no
-    three-pass ``HIGH`` lowering, so the standard bf16x3 split is done by
-    hand: ``x = xh + xl``, ``w = wh + wl`` in bfloat16, and the product
-    keeps the three largest terms (``xh@wh + xh@wl + xl@wh``), dropping
-    only the ``xl@wl`` term of relative size ~2^-16 of a ~2^-8 term.
-    Error ~2^-21 relative — two bits above exact f32, invisible at MCMC
-    scales — at half the MXU cost of "highest". Accumulation is f32.
-
-    >>> import numpy as np
-    >>> x = np.random.RandomState(0).randn(8, 64).astype(np.float32)
-    >>> w = np.random.RandomState(1).randn(64, 32).astype(np.float32)
-    >>> exact = np.asarray(jnp.dot(x, w, precision="highest"))
-    >>> got = np.asarray(dot_f32x3(jnp.asarray(x), jnp.asarray(w)))
-    >>> bool(np.allclose(got, exact, rtol=1e-4, atol=1e-3))  # any backend
-    True
-    """
-    bf16, f32 = jnp.bfloat16, jnp.float32
-    xh = x.astype(bf16)
-    xl = (x - xh.astype(f32)).astype(bf16)
-    wh = w.astype(bf16)
-    wl = (w - wh.astype(f32)).astype(bf16)
-    kw = dict(preferred_element_type=f32)
-    return (jnp.dot(xh, wh, **kw) + jnp.dot(xh, wl, **kw)
-            + jnp.dot(xl, wh, **kw))

@@ -1,7 +1,7 @@
 """Model adapters: turn user callables into jittable ``q -> (logp, grad)`` fns.
 
 The reference's model contract is a host Python callable returning
-``(logp, grad)`` (``docs/tutorials/quickstart.rst:37-49``). On TPU the
+``(logp, grad)`` (``docs/tutorials/quickstart.rst:37-49``). Here the
 contract is the same *signature*, but the callable must be JAX-traceable
 so it can live inside the compiled sampling loop. This module provides:
 
@@ -76,7 +76,7 @@ def from_numpy_callable(
     model_ndim: int,
     dtype=jnp.float32,
 ) -> LogpGradFn:
-    """Wrap a host (NumPy/PyTorch/...) ``logp_dlogp_func`` for use on TPU.
+    """Wrap a host (NumPy/PyTorch/...) ``logp_dlogp_func`` for use on the device.
 
     Every model evaluation round-trips device→host→device via
     ``jax.pure_callback`` — orders of magnitude slower than a native JAX
@@ -110,7 +110,7 @@ def from_numpy_callable(
 
 
 def from_torch_callable(torch_logp_dlogp_func, model_ndim: int, dtype=jnp.float32) -> LogpGradFn:
-    """Wrap a PyTorch ``logp_dlogp_func`` (tensors in/out) for use on TPU.
+    """Wrap a PyTorch ``logp_dlogp_func`` (tensors in/out) for use on the device.
 
     Counterpart of the reference cookbook's PyTorch adapter
     (``docs/_static/scripts/sample_pytorch_logp_dlogp_func.py``).

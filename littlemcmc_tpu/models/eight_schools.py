@@ -58,84 +58,3 @@ class EightSchools:
     def batched_logp_grad(self, q: jax.Array):
         """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``."""
         return jax.vmap(self.logp_grad)(q)
-
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel.
-
-        ``y`` and ``1/sigma^2`` ride as zero-padded row constants aligned
-        with the theta-tilde columns (2..9); zeros outside those columns
-        mask the likelihood terms off the non-theta lanes.
-        """
-        if getattr(self, "_traj_spec", None) is None:
-            from jax import lax
-            from ..ops import PallasModelSpec
-            from ..ops.nuts_trajectory_pallas import padded_dim
-
-            npad = padded_dim(self.ndim)
-            y_row = np.zeros((1, npad), np.float32)
-            y_row[0, 2:10] = _Y
-            is2_row = np.zeros((1, npad), np.float32)
-            is2_row[0, 2:10] = 1.0 / _SIGMA ** 2
-
-            def fn(q, y_c, is2_c):
-                mu = q[:, 0:1]
-                log_tau = q[:, 1:2]
-                tau = jnp.exp(log_tau)
-                col = lax.broadcasted_iota(jnp.int32, q.shape, 1)
-                tt = jnp.where((col >= 2) & (col < 10), q, 0.0)
-                theta = mu + tau * tt
-                dy = y_c - theta
-                resid = dy * is2_c  # zero outside the theta columns
-                lp = (
-                    -0.5 * (mu / 5.0) ** 2
-                    - 0.5 * (log_tau / 5.0) ** 2
-                    - 0.5 * jnp.sum(tt * tt, axis=1, keepdims=True)
-                    - 0.5 * jnp.sum(dy * resid, axis=1, keepdims=True)
-                )
-                dmu = -mu / 25.0 + jnp.sum(resid, axis=1, keepdims=True)
-                dlog_tau = -log_tau / 25.0 + tau * jnp.sum(
-                    resid * tt, axis=1, keepdims=True)
-                dtt = -tt + tau * resid
-                grad = jnp.where(col == 0, dmu,
-                                 jnp.where(col == 1, dlog_tau, dtt))
-                return lp, grad
-
-            def packed_fn(q, h, y_c, is2_c):
-                # mu, log_tau at within-segment columns 0, 1; theta-tilde
-                # at 2..9; the packed consts tile y / 1/sigma^2 into the
-                # theta columns of every segment (zero elsewhere).
-                mu = h.segsum(jnp.where(h.colm == 0, q, 0.0))       # (R, K)
-                log_tau = h.segsum(jnp.where(h.colm == 1, q, 0.0))
-                tau = jnp.exp(log_tau)
-                tt = jnp.where((h.colm >= 2) & (h.colm < 10), q, 0.0)
-                theta = h.bc(mu) + h.bc(tau) * tt
-                dy = jnp.where(is2_c > 0, y_c - theta, 0.0)
-                resid = dy * is2_c
-                lp = (
-                    -0.5 * (mu / 5.0) ** 2
-                    - 0.5 * (log_tau / 5.0) ** 2
-                    - 0.5 * h.segsum(tt * tt)
-                    - 0.5 * h.segsum(dy * resid)
-                )
-                dmu = -mu / 25.0 + h.segsum(resid)
-                dlog_tau = -log_tau / 25.0 + tau * h.segsum(resid * tt)
-                dtt = -tt + h.bc(tau) * resid
-                grad = jnp.where(h.colm == 0, h.bc(dmu),
-                                 jnp.where(h.colm == 1, h.bc(dlog_tau), dtt))
-                return lp, grad
-
-            def packed_consts(K, SEG):
-                # numpy on purpose: this runs at kernel-build time, which
-                # may be inside a jit trace — jnp arrays built here would
-                # leak tracers through the build_trajectory_op cache
-                y_p = np.zeros((1, K * SEG), np.float32)
-                is2_p = np.zeros((1, K * SEG), np.float32)
-                for j in range(K):
-                    y_p[0, j * SEG + 2:j * SEG + 10] = _Y
-                    is2_p[0, j * SEG + 2:j * SEG + 10] = 1.0 / _SIGMA ** 2
-                return (y_p, is2_p)
-
-            self._traj_spec = PallasModelSpec(
-                fn, (jnp.asarray(y_row), jnp.asarray(is2_row)), self.ndim,
-                packed_fn=packed_fn, packed_consts=packed_consts)
-        return self._traj_spec

@@ -51,40 +51,6 @@ class NealsFunnel:
         """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``."""
         return jax.vmap(self.logp_grad)(q)
 
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel."""
-        if getattr(self, "_traj_spec", None) is None:
-            from jax import lax
-            from ..ops import PallasModelSpec
-
-            n_x = float(self.ndim - 1)
-            inv_s2 = 1.0 / self.scale ** 2
-
-            def fn(q):
-                v = q[:, 0:1]
-                e = jnp.exp(-v)
-                # padding columns of q are zero, so the sum is exact
-                sq = jnp.sum(q * q, axis=1, keepdims=True) - v * v
-                logp = -0.5 * inv_s2 * v * v - 0.5 * n_x * v - 0.5 * sq * e
-                dv = -inv_s2 * v - 0.5 * n_x + 0.5 * sq * e
-                col = lax.broadcasted_iota(jnp.int32, q.shape, 1)
-                grad = jnp.where(col == 0, dv, -q * e)
-                return logp, grad
-
-            def packed_fn(q, h):
-                # v sits at within-segment column 0 of each chain segment
-                v = h.segsum(jnp.where(h.colm == 0, q, 0.0))     # (R, K)
-                e = jnp.exp(-v)
-                sq = h.segsum(q * q) - v * v
-                logp = -0.5 * inv_s2 * v * v - 0.5 * n_x * v - 0.5 * sq * e
-                dv = -inv_s2 * v - 0.5 * n_x + 0.5 * sq * e
-                grad = jnp.where(h.colm == 0, h.bc(dv), -q * h.bc(e))
-                return logp, grad
-
-            self._traj_spec = PallasModelSpec(fn, (), self.ndim,
-                                              packed_fn=packed_fn)
-        return self._traj_spec
-
 
 class NonCenteredFunnel:
     """Neal's funnel, non-centered: ``q = [v_tilde, x_tilde...]``.
@@ -124,18 +90,3 @@ class NonCenteredFunnel:
         v = self.scale * q[..., :1]
         x = jnp.exp(v / 2.0) * q[..., 1:]
         return jnp.concatenate([v, x], axis=-1)
-
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel."""
-        if getattr(self, "_traj_spec", None) is None:
-            from ..ops import PallasModelSpec
-
-            def fn(q):
-                return -0.5 * jnp.sum(q * q, axis=1, keepdims=True), -q
-
-            def packed_fn(q, h):
-                return -0.5 * h.segsum(q * q), -q
-
-            self._traj_spec = PallasModelSpec(fn, (), self.ndim,
-                                              packed_fn=packed_fn)
-        return self._traj_spec

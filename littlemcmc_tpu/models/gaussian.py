@@ -2,10 +2,10 @@
 
 BASELINE configs 1 and 2. The correlated Gaussian's ``logp_grad`` computes
 the gradient and the log-density in a *single* matrix-vector product
-(``grad = -Λ(q-μ)``, ``logp = ½ (q-μ)·grad + const``): one MXU matvec per
+(``grad = -Λ(q-μ)``, ``logp = ½ (q-μ)·grad + const``): one matvec per
 evaluation instead of the forward+backward pair ``jax.value_and_grad``
 would issue. Batched over chains this is a single ``(C, n) @ (n, n)``
-matmul — exactly the shape the TPU MXU wants.
+matmul.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ class StandardNormal:
         # exact posterior moments, for tests/benchmarks
         self.true_mean = np.zeros(ndim)
         self.true_var = np.ones(ndim)
-        self._traj_spec = None
 
     def logp(self, q: jax.Array) -> jax.Array:
         return -0.5 * jnp.sum(q * q)
@@ -37,21 +36,6 @@ class StandardNormal:
     def batched_logp_grad(self, q: jax.Array):
         """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``."""
         return -0.5 * jnp.sum(q * q, axis=-1), -q
-
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel."""
-        if self._traj_spec is None:
-            from ..ops import PallasModelSpec
-
-            def fn(q):  # padding columns are zero, so the sums are exact
-                return -0.5 * jnp.sum(q * q, axis=1, keepdims=True), -q
-
-            def packed_fn(q, h):  # per-segment padding is zero too
-                return -0.5 * h.segsum(q * q), -q
-
-            self._traj_spec = PallasModelSpec(fn, (), self.ndim,
-                                              packed_fn=packed_fn)
-        return self._traj_spec
 
 
 def _ar1_correlation(ndim: int, rho: float) -> np.ndarray:
@@ -68,10 +52,9 @@ class CorrelatedGaussian:
     """
 
     def __init__(self, ndim: int = 100, rho: float = 0.9, scale_range=(0.1, 10.0),
-                 dtype=jnp.float32, seed: int = 0, use_pallas: bool = False):
+                 dtype=jnp.float32, seed: int = 0):
         self.ndim = int(ndim)
         self.dtype = dtype
-        self.use_pallas = bool(use_pallas)
         rng = np.random.RandomState(seed)
         log_scales = rng.uniform(np.log(scale_range[0]), np.log(scale_range[1]), ndim)
         scales = np.exp(np.sort(log_scales))
@@ -82,7 +65,6 @@ class CorrelatedGaussian:
         self.true_mean = np.zeros(ndim)
         self.true_var = np.diag(self.cov).copy()
         self._prec_dev = jnp.asarray(self.prec, dtype)
-        self._traj_spec = None
 
     def logp(self, q: jax.Array) -> jax.Array:
         g = -jnp.dot(self._prec_dev, q, precision="highest",
@@ -96,47 +78,10 @@ class CorrelatedGaussian:
         return 0.5 * jnp.dot(q, g), g
 
     def batched_logp_grad(self, q: jax.Array):
-        """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``.
-
-        With ``use_pallas=True`` dispatches to the fused Pallas kernel
-        (:mod:`littlemcmc_tpu.ops.gaussian_pallas`); otherwise one XLA
-        batched matmul. Use with kernels built via
-        ``build_nuts_kernel(..., batched_model=True)``-style drivers or
-        plain ``jax.vmap`` replacement hooks.
-        """
-        if self.use_pallas:
-            from ..ops import quadform_logp_grad
-
-            return quadform_logp_grad(q, self._prec_dev)
+        """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``: one matmul."""
         g = -jnp.dot(q, self._prec_dev, precision="highest",
                      preferred_element_type=self._prec_dev.dtype)
         return 0.5 * jnp.sum(q * g, axis=-1), g
-
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel."""
-        if self._traj_spec is None:
-            from ..ops import PallasModelSpec
-            from ..ops.nuts_trajectory_pallas import padded_dim
-
-            n = self.ndim
-            npad = padded_dim(n)
-            prec_pad = jnp.zeros((npad, npad), jnp.float32)
-            prec_pad = prec_pad.at[:n, :n].set(
-                jnp.asarray(self.prec, jnp.float32))
-
-            from ..math import dot_f32x3
-
-            def fn(q, prec):
-                # bf16x3 split matvec: Mosaic has no 3-pass HIGH dot, and
-                # "highest" (6 passes) is ~60% of the whole per-leaf cost
-                # at this shape (scripts/leaf_cost_probe.py). ~2^-21
-                # relative error — far inside the validation gates
-                # (posterior_var_ratio, VALIDATION z-scores).
-                g = -dot_f32x3(q, prec)
-                return 0.5 * jnp.sum(q * g, axis=1, keepdims=True), g
-
-            self._traj_spec = PallasModelSpec(fn, (prec_pad,), n)
-        return self._traj_spec
 
 
 class SpikedGaussian:
@@ -155,8 +100,7 @@ class SpikedGaussian:
     ``logp_grad`` uses the structured precision
     ``Σ⁻¹ = S⁻¹(I + V(λ⁻¹−1)Vᵀ)S⁻¹`` — exact in O(nk), never
     materializing an ``n×n`` matrix, so large-``ndim`` benchmarks stay
-    cheap and every product maps onto the MXU as ``(C, n) @ (n, k)``
-    panels.
+    cheap and every product is a ``(C, n) @ (n, k)`` panel.
     """
 
     def __init__(self, ndim: int = 100, rank: int = 4,
@@ -179,7 +123,6 @@ class SpikedGaussian:
         self._V = jnp.asarray(V, dtype)
         self._ilam_m1 = jnp.asarray(1.0 / lam - 1.0, dtype)
         self._inv_s = jnp.asarray(1.0 / s, dtype)
-        self._traj_spec = None
 
     def _neg_prec_matvec(self, q: jax.Array) -> jax.Array:
         x = q * self._inv_s
@@ -200,39 +143,3 @@ class SpikedGaussian:
         """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``."""
         g = self._neg_prec_matvec(q)
         return 0.5 * jnp.sum(q * g, axis=-1), g
-
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel.
-
-        The structured precision becomes two thin MXU matmuls per eval;
-        the factor constants are padded to full 128-lane tiles so Mosaic
-        sees standard shapes (zero columns contribute nothing).
-        """
-        if self._traj_spec is None:
-            from ..ops import PallasModelSpec
-            from ..ops.nuts_trajectory_pallas import padded_dim
-
-            n, k = self.ndim, self.rank
-            npad = padded_dim(n)
-            KP = 128
-            Vp = jnp.zeros((npad, KP), jnp.float32).at[:n, :k].set(
-                jnp.asarray(self.V, jnp.float32))
-            il = jnp.zeros((8, KP), jnp.float32).at[0, :k].set(
-                jnp.asarray(1.0 / self.lam - 1.0, jnp.float32))
-            inv_s = jnp.zeros((8, npad), jnp.float32).at[0, :n].set(
-                jnp.asarray(1.0 / self.scales, jnp.float32))
-
-            def fn(q, Vp, il, inv_s):
-                x = q * inv_s[0:1, :]
-                c = jax.lax.dot_general(
-                    x, Vp, dimension_numbers=(((1,), (0,)), ((), ())),
-                    precision="highest", preferred_element_type=jnp.float32)
-                y = x + jax.lax.dot_general(
-                    c * il[0:1, :], Vp,
-                    dimension_numbers=(((1,), (1,)), ((), ())),
-                    precision="highest", preferred_element_type=jnp.float32)
-                g = -y * inv_s[0:1, :]
-                return 0.5 * jnp.sum(q * g, axis=1, keepdims=True), g
-
-            self._traj_spec = PallasModelSpec(fn, (Vp, il, inv_s), n)
-        return self._traj_spec

@@ -1,13 +1,10 @@
 """Group-indexed hierarchical regression (random intercepts).
 
 The most common real Bayesian model shape — observations indexed into
-groups (``theta[groups]``) with partial pooling — and the showcase for
-the auto-lowering path's one-hot gather/scatter rewrite
-(:mod:`littlemcmc_tpu.ops.autospec`): the reference's "bring your own
-logp" contract (``/root/reference/docs/tutorials/quickstart.rst:37-49``)
-covers exactly this kind of user model, and here it runs inside the
-whole-trajectory Pallas kernels with the group gather compiled to an
-indicator matmul on the MXU.
+groups (``theta[groups]``) with partial pooling. The reference's "bring
+your own logp" contract (``docs/tutorials/quickstart.rst:37-49``) covers
+exactly this kind of user model: its gradient is plain autodiff, with the
+group gather's scatter-add in the backward pass.
 
 Non-centered parameterization (the production form for hierarchical
 geometry): ``q = [mu, log_tau, b (p), z (J)]`` with group intercepts
@@ -30,8 +27,7 @@ class HierarchicalRegression:
     (non-centered intercepts), ``b ~ N(0,1)``, ``mu ~ N(0, 5)``,
     ``log_tau ~ N(0, 1)``. The log-density uses ``jnp.take`` for the
     group gather — deliberately written the way a user would write it,
-    so its gradient contains the scatter-add VJP; both are rewritten to
-    one-hot matmuls by the auto-lowering replay.
+    so its gradient contains the scatter-add VJP.
     """
 
     def __init__(self, n_groups: int = 32, n_rows: int = 512,
@@ -56,7 +52,6 @@ class HierarchicalRegression:
         self.n_features = int(n_features)
         self.ndim = 2 + n_features + n_groups
         self.dtype = dtype
-        self._traj_spec = None
 
     # parameter unpacking: [mu, log_tau, b(p), z(J)]
     def _split(self, q):
@@ -78,12 +73,3 @@ class HierarchicalRegression:
 
     def batched_logp_grad(self, q: jax.Array):
         return jax.vmap(self.logp_grad)(q)
-
-    def pallas_trajectory_spec(self):
-        """Auto-lowered spec: the gather/scatter become one-hot matmuls."""
-        if self._traj_spec is None:
-            from ..ops.autospec import make_pallas_model_spec
-
-            self._traj_spec = make_pallas_model_spec(
-                ndim=self.ndim, logp_fn=self.logp, dtype=self.dtype)
-        return self._traj_spec

@@ -8,7 +8,7 @@ itself is dataset-agnostic.
 
 ``logp_grad`` is analytic: the gradient reuses the forward logits, so one
 evaluation costs a single ``(N, p)`` matvec pair — batched over chains,
-two MXU matmuls.
+two matmuls.
 """
 
 from __future__ import annotations
@@ -39,8 +39,7 @@ class LogisticRegression:
     Parameters are ``q = [intercept, beta...]`` (``n_features + 1`` dims).
     """
 
-    def __init__(self, X=None, y=None, prior_scale: float = 10.0, dtype=jnp.float32,
-                 use_pallas: bool = False):
+    def __init__(self, X=None, y=None, prior_scale: float = 10.0, dtype=jnp.float32):
         if X is None:
             X, y = german_credit_synthetic()
         X = np.asarray(X, np.float64)
@@ -52,13 +51,6 @@ class LogisticRegression:
         self.ndim = p + 1
         self.prior_scale = float(prior_scale)
         self.dtype = dtype
-        self._batched_pallas = None
-        if use_pallas:
-            from ..ops.logistic_pallas import make_logistic_logp_grad
-
-            self._batched_pallas = make_logistic_logp_grad(
-                np.concatenate([np.ones((n, 1)), X], axis=1), y, self.prior_scale
-            )
 
     def logp(self, q: jax.Array) -> jax.Array:
         logits = jnp.dot(self._Xb, q, precision="highest",
@@ -82,55 +74,5 @@ class LogisticRegression:
         return loglik + logprior, grad
 
     def batched_logp_grad(self, q: jax.Array):
-        """Chain-batched ``(logp, grad)``; fused Pallas path if enabled."""
-        if self._batched_pallas is not None:
-            return self._batched_pallas(q)
+        """Chain-batched ``(logp, grad)`` for ``q: (chains, n)``."""
         return jax.vmap(self.logp_grad)(q)
-
-    def pallas_trajectory_spec(self):
-        """Inlineable model for the whole-trajectory Pallas NUTS kernel.
-
-        The design matrix rides in VMEM (zero-padded to MXU tiles, both
-        orientations so each evaluation is two plain matmuls); padded
-        data rows are masked out of the likelihood with a row-mask
-        constant.
-        """
-        if getattr(self, "_traj_spec", None) is None:
-            from ..ops import PallasModelSpec
-            from ..ops.nuts_trajectory_pallas import padded_dim
-
-            n = self.ndim
-            npad = padded_dim(n)
-            Xb = np.asarray(self._Xb, np.float32)
-            rows, _ = Xb.shape
-            rpad = ((rows + 127) // 128) * 128
-            Xp = np.zeros((rpad, npad), np.float32)
-            Xp[:rows, :n] = Xb
-            Xt = np.ascontiguousarray(Xp.T)
-            yp = np.zeros((1, rpad), np.float32)
-            yp[0, :rows] = np.asarray(self._y, np.float32)
-            rmask = np.zeros((1, rpad), np.float32)
-            rmask[0, :rows] = 1.0
-            inv_ps2 = 1.0 / self.prior_scale ** 2
-
-            def fn(q, Xt_c, X_c, y_c, m_c):
-                logits = jnp.dot(q, Xt_c, precision="highest",
-                                 preferred_element_type=jnp.float32)
-                mu = jax.nn.sigmoid(logits)
-                ll_terms = (y_c * logits - jax.nn.softplus(logits)) * m_c
-                loglik = jnp.sum(ll_terms, axis=1, keepdims=True)
-                logprior = -0.5 * inv_ps2 * jnp.sum(q * q, axis=1, keepdims=True)
-                grad = (
-                    jnp.dot((y_c - mu) * m_c, X_c, precision="highest",
-                            preferred_element_type=jnp.float32)
-                    - inv_ps2 * q
-                )
-                return loglik + logprior, grad
-
-            self._traj_spec = PallasModelSpec(
-                fn,
-                (jnp.asarray(Xt), jnp.asarray(Xp), jnp.asarray(yp),
-                 jnp.asarray(rmask)),
-                n,
-            )
-        return self._traj_spec

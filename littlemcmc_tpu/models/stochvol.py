@@ -2,14 +2,14 @@
 
 The standard hard target from the Stan/PyMC example corpus (the
 reference itself ships no models — its docs say "bring your own logp",
-``/root/reference/docs/tutorials/quickstart.rst:37-49``): daily returns
+``docs/tutorials/quickstart.rst:37-49``): daily returns
 ``y_t ~ N(0, exp(h_t/2)²)`` with an AR(1) log-volatility process
 ``h_t = mu + phi (h_{t-1} - mu) + sigma ε_t``. The parameter vector is
 ``q = [phi_raw, log_sigma, mu, h_1..h_T]`` (``ndim = T + 3``), so it
 exercises the large-``ndim`` axis with realistic funnel-like coupling
 between ``sigma`` and the latent states.
 
-TPU notes: the AR(1) prior is evaluated with *shifted arrays* —
+Notes: the AR(1) prior is evaluated with *shifted arrays* —
 ``h[1:] - mu - phi (h[:-1] - mu)`` — one vectorized residual row, no
 ``lax.scan`` over time inside the log-density, so the whole model is
 elementwise + reductions and batches perfectly over chains. Gradients

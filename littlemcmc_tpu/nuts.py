@@ -1,8 +1,8 @@
 """No-U-Turn sampler as a natively chain-batched, fixed-shape XLA kernel.
 
-TPU-native re-architecture of the reference's recursive NUTS
-(``littlemcmc/nuts.py``). The reference builds the binary trajectory tree
-with Python recursion (``nuts.py:377-417``); XLA cannot trace unbounded
+Re-architecture of the reference's recursive NUTS (``littlemcmc/nuts.py``)
+for accelerators. The reference builds the binary trajectory tree with
+Python recursion (``nuts.py:377-417``); XLA cannot trace unbounded
 recursion, so the same tree is built *iteratively* with an explicit merge
 stack — a post-order traversal that replays the reference's recursion
 exactly: leaf ``i`` triggers one merge per trailing one-bit of ``i``,
@@ -11,23 +11,21 @@ same multinomial proposal swaps and the same 3-way generalized U-turn
 checks (``nuts.py:332-340, 389-398``).
 
 The kernel is **batched over chains by construction** rather than via
-``vmap``. The key observation making this efficient on TPU: every chain
-that is still extending its tree follows the *same* schedule — at outer
-iteration ``d`` all active chains build a ``2^d``-leaf subtree, process
-leaves in the same order, perform merges at the same leaf indices, and
-push/pop at the same stack heights. All loop control (depth, leaf index,
-merge count, stack height) is therefore *scalar*, per-chain divergence
-from the schedule is handled with boolean masks, and every stack access
-is a static-stride ``dynamic_update_slice`` at a scalar index — **no
-per-lane gathers or scatters**, which a ``vmap``-ed per-chain stack would
-require (slow and fault-prone on TPU). All bulk data is ``(chains, n)``,
-exactly the 2-D layout the VPU tiles natively.
+``vmap``. The key observation: every chain that is still extending its
+tree follows the *same* schedule — at outer iteration ``d`` all active
+chains build a ``2^d``-leaf subtree, process leaves in the same order,
+perform merges at the same leaf indices, and push/pop at the same stack
+heights. All loop control (depth, leaf index, merge count, stack height)
+is therefore *scalar*, per-chain divergence from the schedule is handled
+with boolean masks, and every stack access is a static-stride
+``dynamic_update_slice`` at a scalar index — **no per-lane gathers or
+scatters**, which a ``vmap``-ed per-chain stack would require. All bulk
+data is ``(chains, n)``, one dense 2-D array per quantity.
 
-The hot-loop working set is kept deliberately *slim* so XLA can keep the
-while-loop carries VMEM-resident (HBM traffic per leaf is what bounds
-throughput once the model itself is cheap; measured: a bare fused
-leapfrog at 1024x100 costs ~1.8 us, so every extra (chains, n) array
-written per leaf costs ~30% of a leapfrog):
+The hot-loop working set is kept deliberately *slim*, because the memory
+traffic per leaf bounds throughput once the model itself is cheap: every
+extra ``(chains, n)`` array written per leaf costs a sizeable fraction
+of a leapfrog.
 
 - the merge stack stores per subtree only ``(left_p, right_p, p_sum,
   proposal q)`` — velocities at subtree boundaries are *recomputed* from
@@ -639,55 +637,11 @@ def _diag_inverse_mass(potential):
     return None
 
 
-def _shared_dense_cov(potential, pooled: bool = False):
-    """Shared covariance of a dense metric (batched), or None.
-
-    ``QuadPotentialFull`` always qualifies: its covariance is fixed and
-    the chain batch carries a broadcast copy, so row 0 is the shared
-    matrix. ``QuadPotentialFullAdapt`` qualifies only under cross-chain
-    pooled adaptation (``pooled=True``): the driver overwrites every
-    chain's metric with the pooled estimate each tuning step, so row 0
-    is the shared matrix at every kernel entry. Per-chain adaptive dense
-    covariances cannot fit the trajectory kernel's VMEM budget.
-    """
-    from .quadpotential import QuadPotentialFull, QuadPotentialFullAdapt
-
-    if isinstance(potential, QuadPotentialFull):
-        return potential.cov[0]
-    if pooled and isinstance(potential, QuadPotentialFullAdapt):
-        return potential.cov[0]
-    return None
-
-
-def _shared_lowrank_factor(potential, pooled: bool = False):
-    """``(stds, V, lam, alpha)`` of a pooled low-rank metric, or None.
-
-    Only the *pooled* ``QuadPotentialLowRankAdapt`` qualifies: the
-    driver overwrites every chain's basis/eigenvalues/diagonal with the
-    cross-chain pooled estimate each tuning step, so row 0 carries the
-    shared factor at every kernel entry (the same contract as the
-    pooled dense path, :func:`_shared_dense_cov`). Per-chain low-rank
-    adaptation keeps a distinct basis per chain — a ``(C, n, k)`` VMEM
-    resident the kernel does not model — and runs the XLA tree.
-    """
-    from .quadpotential import QuadPotentialLowRankAdapt
-
-    if pooled and isinstance(potential, QuadPotentialLowRankAdapt):
-        return (potential.stds, potential.vecs[0], potential.lam[0],
-                potential.alpha[0])
-    return None
-
-
 @functools.lru_cache(maxsize=512)
 def build_nuts_kernel(
     logp_grad_fn: LogpGradFn,
     config: NUTSConfig = NUTSConfig(),
     batched_logp_grad_fn: Optional[LogpGradFn] = None,
-    trajectory_spec=None,
-    mesh=None,
-    chain_axis: str = "chains",
-    pooled_metric: bool = False,
-    trajectory_interpret: bool = False,
 ):
     """Build the chain-batched NUTS transition ``kernel(states, tuning)``.
 
@@ -699,23 +653,9 @@ def build_nuts_kernel(
     reuse jit caches.
 
     ``batched_logp_grad_fn`` optionally overrides the model evaluation
-    with a natively-batched ``(C, n) -> ((C,), (C, n))`` implementation
-    (e.g. a fused Pallas kernel); the default is ``vmap`` of the
-    per-chain function.
-
-    ``trajectory_spec`` (a :class:`littlemcmc_tpu.ops.PallasModelSpec`)
-    switches the whole tree-building trajectory to the single-kernel
-    Pallas fast path (VMEM-resident merge stack, model inlined into the
-    kernel; requires a diagonal metric and float32). Statistically
-    identical to the XLA path; uses the on-core PRNG instead of
-    threefry, so draws differ bitwise.
-
-    ``mesh``/``chain_axis``: when the chain batch is sharded over a
-    multi-device mesh, GSPMD cannot auto-partition the pallas_call, so
-    the trajectory op is wrapped in ``shard_map`` over the chain axis —
-    each device builds trees for its own chain shard (chains never
-    interact inside a trajectory) with a per-device-decorrelated PRNG
-    seed.
+    with a natively-batched ``(C, n) -> ((C,), (C, n))`` implementation;
+    the default is ``vmap`` of the per-chain function. Under a sharded
+    chain batch, GSPMD partitions the whole kernel over the chain axis.
     """
     logp_grad_b = (
         batched_logp_grad_fn
@@ -744,133 +684,16 @@ def build_nuts_kernel(
             early, config.early_max_treedepth, config.max_treedepth
         ).astype(jnp.int32)
 
-        if trajectory_spec is not None:
-            var_b = _diag_inverse_mass(states.potential)
-            if var_b is not None:
-                metric = "diag"
-            else:
-                var_b = _shared_dense_cov(states.potential,
-                                          pooled=pooled_metric)
-                if var_b is not None:
-                    metric = "dense"
-                else:
-                    var_b = _shared_lowrank_factor(states.potential,
-                                                   pooled=pooled_metric)
-                    if var_b is None:
-                        raise ValueError(
-                            "the Pallas trajectory path requires a diagonal "
-                            "metric (QuadPotentialDiag / "
-                            "QuadPotentialDiagAdapt), a static shared dense "
-                            "metric (QuadPotentialFull), a cross-chain pooled "
-                            "adaptive dense metric (QuadPotentialFullAdapt "
-                            "with cross_chain_adapt=True), or a cross-chain "
-                            "pooled low-rank metric (QuadPotentialLowRankAdapt "
-                            "with cross_chain_adapt=True)"
-                        )
-                    metric = "lowrank"
-            from .ops.nuts_trajectory_pallas import (build_trajectory_op,
-                                                     resolve_pack)
+        tree = run_nuts_tree(
+            k_tree, start, step_size, max_depth_c,
+            states.potential, logp_grad_b, config,
+        )
 
-            # Lane packing: small-n models share 128-lane rows between
-            # K chains (the VPU otherwise idles ~90% of each vector op
-            # at n ~ 10). Requires a packed_fn, a diagonal metric, and a
-            # chain count that still blocks into >= 8 rows. The kernel
-            # blocks the per-device chain shard under a mesh (chains are
-            # sharded over the chain axis only).
-            n_model = start.q.shape[-1]
-            n_chain_devs = 1
-            if mesh is not None:
-                n_chain_devs = (mesh.shape[chain_axis]
-                                if chain_axis in mesh.shape else mesh.size)
-            C_local = start.q.shape[0] // n_chain_devs
-            pack = (resolve_pack(trajectory_spec, n_model, C_local)
-                    if metric == "diag" else 1)
-            traj_op = build_trajectory_op(
-                trajectory_spec,
-                n_model,
-                config.max_treedepth,
-                config.Emax,
-                config.integrator,
-                chain_block=(config.chain_block or
-                             (256 * pack if pack > 1 else 512)),
-                metric=metric,
-                interpret=trajectory_interpret,
-                pack=pack,
-            )
-            # both 32-bit words of chain 0's fresh per-draw key: 64 bits
-            # of per-draw entropy for the kernel's on-core PRNG
-            seed = jax.random.key_data(k_tree)[0].astype(jnp.int32)
-            if mesh is not None:
-                # GSPMD cannot partition the pallas_call; shard_map it so
-                # each device runs the kernel on its own chain shard.
-                from jax import shard_map
-                from jax.sharding import PartitionSpec
-
-                Pc = PartitionSpec(chain_axis)
-                Pr = PartitionSpec()
-
-                def traj_local(q, p, g, lp, eps, mdc, var, sd):
-                    # decorrelate the per-device PRNG streams
-                    dev = jax.lax.axis_index(chain_axis).astype(jnp.int32)
-                    sd = sd + jnp.stack([dev * jnp.int32(1000003),
-                                         jnp.int32(0)])
-                    return traj_op(q, p, g, lp, eps, mdc, var, sd)
-
-                if metric == "diag":
-                    Pv = Pc
-                elif metric == "lowrank":
-                    # per-chain stds shard; the pooled factor replicates
-                    Pv = (Pc, Pr, Pr, Pr)
-                else:
-                    Pv = Pr  # shared cov replicates
-                traj_call = shard_map(
-                    traj_local, mesh=mesh,
-                    in_specs=(Pc, Pc, Pc, Pc, Pc, Pc, Pv, Pr),
-                    out_specs=Pc,
-                    # pallas_call outputs carry no varying-mesh-axis
-                    # metadata; every output is chain-sharded by
-                    # construction (out_specs above)
-                    check_vma=False,
-                )
-            else:
-                traj_call = traj_op
-            outs = traj_call(
-                start.q, start.p, start.q_grad, start.logp,
-                step_size, max_depth_c, var_b, seed,
-            )
-            dtype = start.q.dtype
-            log_size = outs["log_size"].astype(dtype)
-            lwas = outs["log_weighted_accept_sum"].astype(dtype)
-            mta = jnp.where(
-                log_size > 0,
-                jnp.exp(lwas - (log_size + log1mexp(log_size))),
-                0.0,
-            )
-            tree = TreeResult(
-                prop_q=outs["q"].astype(dtype),
-                prop_energy=outs["energy"].astype(dtype),
-                prop_logp=outs["logp"].astype(dtype),
-                depth=outs["depth"],
-                n_proposals=outs["n_leaves"],
-                mean_tree_accept=mta,
-                max_energy_change=outs["max_energy_change"].astype(dtype),
-                diverging=outs["diverging"],
-                turning=outs["turning"],
-                reached_max_treedepth=(~outs["diverging"]) & (~outs["turning"]),
-            )
-            prop_logp = tree.prop_logp
-            prop_grad = outs["grad"].astype(dtype)
-        else:
-            tree = run_nuts_tree(
-                k_tree, start, step_size, max_depth_c,
-                states.potential, logp_grad_b, config,
-            )
-
-            # The proposal's gradient was not carried through the tree (see
-            # module docstring); recompute it once at the accepted position.
-            # (Deterministic model ⇒ identical to the value the reference
-            # caches in its State objects.)
-            prop_logp, prop_grad = logp_grad_b(tree.prop_q)
+        # The proposal's gradient was not carried through the tree (see
+        # module docstring); recompute it once at the accepted position.
+        # (Deterministic model ⇒ identical to the value the reference
+        # caches in its State objects.)
+        prop_logp, prop_grad = logp_grad_b(tree.prop_q)
 
         # Adaptation updates (``base_hmc.py:161-162``).
         da = dual_average_update(
@@ -915,413 +738,3 @@ def build_nuts_kernel(
         return new_states, info
 
     return kernel
-
-
-def _fused_welford_tuple(pot):
-    """Flatten a ``QuadPotentialDiagAdapt`` into the fused op's layout."""
-    return (pot.fg.mean, pot.fg.raw_var, pot.fg.w_sum, pot.fg.w_sum2,
-            pot.bg.mean, pot.bg.raw_var, pot.bg.w_sum, pot.bg.w_sum2,
-            pot.n_samples.astype(jnp.float32), pot.window.astype(jnp.float32))
-
-
-def _pool_dense_welford(pot):
-    """Global pooled moments from a chain-batched ``QuadPotentialFullAdapt``.
-
-    Exact Chan combination over chains for both windows (the same math
-    as :func:`littlemcmc_tpu.parallel.cross_chain._pooled_cov`, kept as
-    full ``(mean, raw, weight)`` states). Runs at the global jit level,
-    so GSPMD lowers the chain reductions to psums over a sharded mesh.
-    """
-    f32 = jnp.float32
-
-    def pool(wf):
-        nc = wf.n_samples.astype(f32)  # (C,)
-        N = jnp.sum(nc)
-        M = jnp.sum(nc[:, None] * wf.mean, axis=0) / jnp.maximum(N, 1e-30)
-        d = wf.mean - M
-        raw = jnp.sum(wf.raw_cov, axis=0) + jnp.einsum("c,ci,cj->ij", nc, d, d)
-        return M, raw, N
-
-    fgM, fgR, fgW = pool(pot.fg)
-    bgM, bgR, bgW = pool(pot.bg)
-    return (fgM, fgR, fgW, bgM, bgR, bgW,
-            pot.n_samples[0].astype(f32),
-            pot.prev_update[0].astype(f32),
-            pot.window[0].astype(f32))
-
-
-def _scale_dense_welford(dense_welford, n_devices):
-    """Pre-scale the extensive leaves of the pooled-dense Welford tuple.
-
-    The fused kernel seeds each of its LOCAL B blocks with 1/B of the
-    state it receives; with D devices the exact-combine identity needs
-    1/(D*B) per block, so the sharded caller scales the raw scatters and
-    weights (means and counters are intensive) by 1/D first.
-    """
-    dw = list(dense_welford)
-    for i in (1, 2, 4, 5):  # fg_raw, fg_w, bg_raw, bg_w
-        dw[i] = dw[i] / n_devices
-    return tuple(dw)
-
-
-def _dense_boundary_potential(pot, outs, c_fg, C):
-    """Chunk-boundary pooled-dense metric refresh from fused outputs.
-
-    Chan-combines the per-block (and, under GSPMD, per-device) Welford
-    states the fused kernel wrote, refreshes the shared metric with the
-    pooled covariance estimator (``cross_chain._pooled_cov``: raw/(N-1))
-    + Cholesky — keeping the previous factor on a non-finite
-    factorization (reference ``quadpotential.py:506-510``) — and stores
-    the pooled state in replicated per-chain form: each chain carries
-    1/C of the weight at the pooled mean, so Chan-combining C such rows
-    reproduces the global state exactly and the per-draw and fused
-    engines interoperate mid-run.
-    """
-    from .ops.fused_nuts_pallas import combine_dense_welford
-    from .quadpotential import WelfordCovariance
-
-    Wf, Mf, Rf = combine_dense_welford(
-        outs["dense_fg_w"], outs["dense_fg_mean"], outs["dense_fg_raw"], c_fg)
-    Wb, Mb, Rb = combine_dense_welford(
-        outs["dense_bg_w"], outs["dense_bg_mean"], outs["dense_bg_raw"], c_fg)
-    cov_new = Rf / jnp.maximum(Wf - 1.0, 1.0)
-    chol_new = jnp.linalg.cholesky(cov_new)
-    ok = jnp.all(jnp.isfinite(chol_new))
-    bcast = lambda m: jnp.broadcast_to(m, (C,) + m.shape)
-    Cf = jnp.asarray(float(C), jnp.float32)
-    return pot.replace(
-        cov=jnp.where(ok, bcast(cov_new), pot.cov),
-        chol=jnp.where(ok, bcast(chol_new), pot.chol),
-        chol_failed=pot.chol_failed | ~ok,
-        fg=WelfordCovariance(n_samples=jnp.full((C,), Wf / Cf),
-                             mean=bcast(Mf), raw_cov=bcast(Rf / Cf)),
-        bg=WelfordCovariance(n_samples=jnp.full((C,), Wb / Cf),
-                             mean=bcast(Mb), raw_cov=bcast(Rb / Cf)),
-        n_samples=jnp.full((C,), outs["n_samples"].astype(jnp.int32)),
-        prev_update=jnp.full((C,), outs["prev_update"].astype(jnp.int32)),
-        window=jnp.full((C,), outs["window"].astype(jnp.int32)),
-    )
-
-
-def build_fused_nuts_runner_factory(
-    config: NUTSConfig,
-    trajectory_spec,
-    potential_template,
-    model_ndim: int,
-    local_chains: int,
-    mesh=None,
-    chain_axis: str = "chains",
-    interpret: bool = False,
-    pooled: bool = False,
-):
-    """Chunk-runner factory for the fused multi-draw Pallas NUTS kernel.
-
-    Returns ``factory(chunk, tuning, collect) -> run_chunk`` with the
-    same contract as the driver's ``_make_chunk_runner``:
-    ``run_chunk(states) -> (new_states, (qs, NUTSInfo) | None, ndiv)``.
-    One ``pallas_call`` executes all ``chunk`` transitions with momentum
-    refresh, dual averaging, and dual-window Welford adaptation on core
-    (see :mod:`littlemcmc_tpu.ops.fused_nuts_pallas`); this erases the
-    per-draw launch + XLA-epilogue cost that dominated small-model
-    throughput (measured 17x between raw kernel and e2e in round 2).
-
-    ``potential_template`` is a single-chain instance of the metric used
-    only for static structure (adaptive vs static, diagonal vs dense,
-    window multiplier). Supported:
-
-    - diagonal (``QuadPotentialDiag`` / ``QuadPotentialDiagAdapt``,
-      non-pooled): every phase fused, adaptation on core;
-    - static dense (``QuadPotentialFull``): every phase fused — momentum
-      is one MXU matmul against ``L^{-1}``, velocities matmuls against
-      the shared covariance; dual averaging stays on core;
-    - pooled diagonal (``pooled=True`` + ``QuadPotentialDiagAdapt``):
-      every phase fused — the exact per-chain Welford updates run on
-      core and the epilogue pools the shared metric once per chunk
-      boundary (instead of once per draw);
-    - pooled dense (``pooled=True`` + ``QuadPotentialFullAdapt``): every
-      phase fused. Tune chunks carry a block-local pooled Welford
-      covariance in VMEM (one MXU rows-contraction per draw, window
-      swaps on core); the epilogue Chan-combines blocks and devices
-      exactly and refreshes the metric (pooled covariance + Cholesky) at
-      the chunk boundary. Mid-chunk the metric is frozen — Stan's
-      boundary-cadence adaptation rather than the reference's every-draw
-      refresh; boundaries re-synchronize to the exact pooled estimate.
-      Draw chunks run with the frozen post-tune metric.
-    """
-    from .quadpotential import (QuadPotentialDiag, QuadPotentialDiagAdapt,
-                                QuadPotentialFull, QuadPotentialFullAdapt,
-                                QuadPotentialLowRankAdapt,
-                                WelfordVariance)
-    from .ops.fused_nuts_pallas import build_fused_nuts_op
-    from .ops.nuts_trajectory_pallas import resolve_pack
-    from .step_sizes import DualAverageState
-
-    diag_adapt = isinstance(potential_template, QuadPotentialDiagAdapt)
-    diag_static = isinstance(potential_template, QuadPotentialDiag)
-    dense_static = isinstance(potential_template, QuadPotentialFull)
-    dense_pooled = pooled and isinstance(potential_template,
-                                         QuadPotentialFullAdapt)
-    lowrank_pooled = pooled and isinstance(potential_template,
-                                           QuadPotentialLowRankAdapt)
-    if not (diag_adapt or diag_static or dense_static or dense_pooled
-            or lowrank_pooled):
-        raise ValueError(
-            "the fused NUTS kernel requires a diagonal metric, a static "
-            "dense metric (QuadPotentialFull), or a cross-chain pooled "
-            "adaptive metric")
-    dense = dense_static or dense_pooled
-    metric = ("dense" if dense
-              else "lowrank" if lowrank_pooled else "diag")
-    lowrank_k = potential_template.rank if lowrank_pooled else 0
-    # On-core dual-window Welford: per-chain *diagonal* adaptation — which
-    # pooled diag adaptation also is (pooling keeps per-chain accumulators
-    # and only recomputes the shared metric from the pooled fg moments,
-    # parallel/cross_chain.py). Fused pooled-diag tune chunks therefore run
-    # the exact per-chain updates on core and pool once per chunk boundary
-    # in the epilogue instead of once per draw: mid-chunk, chains ride
-    # their own per-chain estimate (the reference's non-pooled behavior);
-    # at every boundary — including the one that freezes the draw-phase
-    # metric — the estimate is the exact pooled one.
-    # The low-rank metric's diagonal part follows the same scheme (its
-    # fg/bg Welford leaves are the diag accumulators), so its tune chunks
-    # also run the per-chain updates on core; the shared factor stays
-    # frozen per chunk and refreshes at boundaries.
-    adapt_metric = diag_adapt or lowrank_pooled
-    window_multiplier = (potential_template.window_multiplier
-                         if (adapt_metric or dense_pooled) else 1.0)
-    pack = resolve_pack(trajectory_spec, model_ndim, local_chains) \
-        if not (dense or lowrank_pooled) else 1
-
-    @functools.lru_cache(maxsize=64)
-    def factory(chunk: int, tuning: bool, collect: bool):
-        adapt_dense = bool(tuning) and dense_pooled
-        op = build_fused_nuts_op(
-            trajectory_spec, model_ndim, chunk, bool(tuning),
-            adapt_metric, config, window_multiplier,
-            chain_block=(config.chain_block or 256),
-            interpret=interpret, pack=pack, collect_trace=bool(collect),
-            metric=metric, adapt_dense=adapt_dense, lowrank_k=lowrank_k,
-        )
-
-        def call_op(states: ChainState, seed, dense_welford=None):
-            pot = states.potential
-            linv = None
-            lowrank_fac = None
-            if dense:
-                # shared metric: row 0 is every chain's matrix (static, or
-                # pooled-overwritten each chunk boundary). L^{-1} turns the
-                # momentum draw into a matmul; one small triangular solve
-                # per chunk, nothing per draw.
-                var = pot.cov[0]
-                linv = jax.scipy.linalg.solve_triangular(
-                    pot.chol[0], jnp.eye(var.shape[0], dtype=var.dtype),
-                    lower=True)
-            elif lowrank_pooled:
-                # per-chain variance rows; the shared factor (row 0 — the
-                # pool keeps every chain identical) freezes for the chunk
-                var = pot.var
-                lowrank_fac = (pot.vecs[0], pot.lam[0], pot.alpha[0])
-            elif diag_adapt:
-                var = pot.var
-            else:
-                var = pot.v
-            welford = _fused_welford_tuple(pot) if adapt_metric else None
-            return op(
-                states.q, states.q_grad, states.logp,
-                states.iter_count.astype(jnp.float32),
-                states.da.log_step, states.da.log_bar, states.da.hbar,
-                states.da.count.astype(jnp.float32), states.da.mu,
-                var, welford, seed, linv=linv, dense_welford=dense_welford,
-                lowrank_fac=lowrank_fac,
-            )
-
-        if mesh is not None:
-            from jax import shard_map
-            from jax.sharding import PartitionSpec
-
-            Pc = PartitionSpec(chain_axis)
-            Pr = PartitionSpec()
-
-            def call_local(states, seed, dense_welford=None):
-                dev = jax.lax.axis_index(chain_axis).astype(jnp.int32)
-                seed = seed + jnp.stack([dev * jnp.int32(1000003),
-                                         jnp.int32(0)])
-                return call_op(states, seed, dense_welford)
-
-            # per-draw streams are (T, C, ...): chain-sharded on axis 1;
-            # pooled-dense block states are device-stacked on axis 0 and
-            # the shared counters replicated; everything else is
-            # chain-batched state, sharded on axis 0. Keyed by NAME (a
-            # shape[0] == chunk heuristic mis-shards when the chunk
-            # length coincides with another dimension).
-            _PER_DRAW = frozenset({"trace", "energy", "model_logp", "depth", "n_leaves", "diverging", "turning", "max_energy_change", "energy_error", "mean_tree_accept", "step_size", "step_size_bar"})
-            _REPLICATED = frozenset({"n_samples", "prev_update", "window"}
-                                    if adapt_dense else ())
-
-            def sharded_call(states, seed, dense_welford=None):
-                from jax.tree_util import tree_map_with_path
-
-                in_specs = (jax.tree.map(lambda _: Pc, states,
-                                         is_leaf=lambda x: x is None), Pr)
-                args = (states, seed)
-                if dense_welford is not None:
-                    nd = float(mesh.shape[chain_axis]
-                               if chain_axis in mesh.shape else mesh.size)
-                    dense_welford = _scale_dense_welford(dense_welford, nd)
-                    in_specs += (jax.tree.map(lambda _: Pr, dense_welford),)
-                    args += (dense_welford,)
-                out_shapes = jax.eval_shape(call_op, *args)
-                out_specs = tree_map_with_path(
-                    lambda path, sh: (PartitionSpec(None, chain_axis)
-                                      if str(path[0].key) in _PER_DRAW
-                                      else Pr if str(path[0].key) in _REPLICATED
-                                      else Pc),
-                    out_shapes,
-                )
-                return shard_map(
-                    call_local, mesh=mesh, in_specs=in_specs,
-                    out_specs=out_specs, check_vma=False,
-                )(*args)
-
-            runner_call = sharded_call
-        else:
-            runner_call = call_op
-
-        @jax.jit
-        def run_chunk(states: ChainState):
-            # Chunk-invariant draw streams (reference property: draws
-            # depend only on the seed, ``sampling.py:496-497``). The
-            # kernel's per-draw stream is
-            #   seed0 = w0 + i_blk*7919 + t*15485863
-            # with ``t`` the in-chunk grid index; folding
-            # ``iter0*15485863`` into ``w0`` keys the stream on the
-            # GLOBAL iteration index, and deriving ``(w0, w1)`` from the
-            # chain key by a fixed fold (never advancing the key across
-            # chunks) removes the chunk count from the derivation — so
-            # ``progress_every`` cannot change the draws.
-            k0 = jax.tree.map(lambda x: x[0], states.rng_key)
-            words = jax.random.key_data(
-                jax.random.fold_in(k0, 0x46AE)).astype(jnp.int32)
-            iter0 = states.iter_count.reshape(-1)[0].astype(jnp.int32)
-            seed = jnp.stack(
-                [words[0] + iter0 * jnp.int32(15485863), words[1]])
-            key_next = states.rng_key
-            dense_welford = (_pool_dense_welford(states.potential)
-                             if adapt_dense else None)
-            if dense_welford is not None:
-                outs = runner_call(states, seed, dense_welford)
-            else:
-                outs = runner_call(states, seed)
-
-            da = DualAverageState(
-                log_step=outs["da_log_step"],
-                log_bar=outs["da_log_bar"],
-                hbar=outs["da_hbar"],
-                count=outs["da_count"].astype(jnp.int32),
-                mu=outs["da_mu"],
-            )
-            if adapt_metric:
-                var = outs["var"]
-                stds = jnp.sqrt(var)
-                fg = WelfordVariance(
-                    w_sum=outs["fg_w"], w_sum2=outs["fg_w2"],
-                    mean=outs["fg_mean"], raw_var=outs["fg_raw"])
-                bg = WelfordVariance(
-                    w_sum=outs["bg_w"], w_sum2=outs["bg_w2"],
-                    mean=outs["bg_mean"], raw_var=outs["bg_raw"])
-                if lowrank_pooled:
-                    # diag part updated on core; the factor leaves ride
-                    # along frozen and refresh at the boundary below.
-                    # buf_fill=0 marks the ring buffer stale: the fused
-                    # kernel never maintains it, so a mid-run fallback to
-                    # the per-draw engine must refill before trusting it
-                    potential = states.potential.replace(
-                        var=var, stds=stds, inv_stds=1.0 / stds,
-                        fg=fg, bg=bg,
-                        n_samples=outs["n_samples"].astype(jnp.int32),
-                        window=outs["window"].astype(jnp.int32),
-                        buf_fill=jnp.zeros_like(states.potential.buf_fill),
-                    )
-                    if tuning:
-                        from .parallel.cross_chain import (
-                            lowrank_boundary_refresh)
-
-                        potential = lowrank_boundary_refresh(
-                            potential, outs["q"])
-                else:
-                    potential = QuadPotentialDiagAdapt(
-                        var=var, stds=stds, inv_stds=1.0 / stds,
-                        fg=fg, bg=bg,
-                        n_samples=outs["n_samples"].astype(jnp.int32),
-                        window=outs["window"].astype(jnp.int32),
-                        window_multiplier=window_multiplier,
-                    )
-                    if pooled and tuning:
-                        # chunk-boundary pooling: recompute the shared
-                        # metric from the cross-chain fg moments (GSPMD
-                        # turns the reductions into psums over a sharded
-                        # mesh)
-                        from .parallel.cross_chain import (
-                            cross_chain_potential_pool)
-
-                        potential = cross_chain_potential_pool(
-                            potential, jnp.asarray(True))
-            elif adapt_dense:
-                potential = _dense_boundary_potential(
-                    states.potential, outs, dense_welford[0],
-                    states.q.shape[0])
-            else:
-                potential = states.potential
-
-            new_states = ChainState(
-                rng_key=key_next,
-                q=outs["q"],
-                q_grad=outs["grad"],
-                logp=outs["logp"],
-                potential=potential,
-                da=da,
-                iter_count=outs["iter_count"].astype(jnp.int32),
-            )
-
-            tuning_arr = jnp.full(outs["depth"].shape, bool(tuning))
-            info = NUTSInfo(
-                depth=outs["depth"],
-                step_size=outs["step_size"],
-                tune=tuning_arr,
-                mean_tree_accept=outs["mean_tree_accept"],
-                step_size_bar=outs["step_size_bar"],
-                tree_size=outs["n_leaves"].astype(jnp.float32),
-                diverging=outs["diverging"],
-                energy_error=outs["energy_error"],
-                energy=outs["energy"],
-                max_energy_error=outs["max_energy_change"],
-                model_logp=outs["model_logp"],
-                reached_max_treedepth=((~outs["diverging"])
-                                       & (~outs["turning"])
-                                       & (~tuning_arr)),
-            )
-            ndiv = jnp.sum(info.diverging).astype(jnp.int32)
-            out = (outs["trace"], info) if collect else None
-            return new_states, out, ndiv
-
-        return run_chunk
-
-    if dense_pooled or lowrank_pooled:
-        # Boundary-cadence adaptation: the shared metric (covariance /
-        # low-rank factor) refreshes only at chunk boundaries, so cap
-        # fused TUNE chunks to keep a Stan-like refresh cadence (~6+
-        # refreshes over a default-length tune; with C pooled chains each
-        # boundary already sees C*cap fresh samples — and each low-rank
-        # boundary runs one batch subspace-iteration step, which needs a
-        # handful of iterations to converge). Without the cap a
-        # single-chunk tune would adapt the step size against the initial
-        # metric for the whole phase (measured: final step 0.53 vs 1.00,
-        # trees ~2x deeper in the draw phase). The schedule refines the
-        # flat cap with early boundaries (10/20/50) — see
-        # base.pooled_tune_schedule; TUNE_PHASE_PROBE.json for the
-        # measured deep-tree prefix it removes.
-        factory.tune_chunk_cap = 50
-        from .base import pooled_tune_schedule
-
-        factory.tune_chunk_schedule = pooled_tune_schedule
-    return factory

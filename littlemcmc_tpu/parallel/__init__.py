@@ -1,6 +1,6 @@
 """Parallel runtime: mesh sharding and multi-host utilities.
 
-TPU-native replacement for the reference's process-based chain executor
+Replacement for the reference's process-based chain executor
 (``parallel_sampling.py``): instead of one OS process per chain with a
 lock-step pipe protocol and shared-memory draw transfer, chains are a
 batch dimension sharded over a ``chains`` mesh axis; XLA inserts any

@@ -7,7 +7,7 @@ tuning window. Each chain keeps its own Welford accumulators (so window
 swaps stay exact); only the *metric* (``var``/``stds`` or ``cov``/
 ``chol``) is recomputed from the cross-chain pooled moments each tuning
 step. Under a ``chains``-sharded mesh the pooling reductions become XLA
-collectives (psum over ICI) automatically.
+collectives automatically.
 
 Pooled moments use the standard parallel Welford combination
 (Chan et al.): ``W = Σ w_c``, ``M = Σ w_c m_c / W``,
@@ -23,7 +23,7 @@ from ..quadpotential import (QuadPotentialDiagAdapt, QuadPotentialFullAdapt,
                              QuadPotentialLowRankAdapt,
                              _effective_eigenvalues, _orthonormal_columns)
 
-__all__ = ["cross_chain_potential_pool", "lowrank_boundary_refresh"]
+__all__ = ["cross_chain_potential_pool"]
 
 
 def _pooled_diag_moments(pot):
@@ -92,54 +92,6 @@ def _pooled_lowrank(pot: QuadPotentialLowRankAdapt, samples, inner: int = 1):
         vecs=b(V), lam=b(lam), alpha=b(alpha),
         lam_w=b(lam_w), lam_s2=b(lam_s2), alpha_s2=b(alpha_s2),
     )
-
-
-def lowrank_boundary_refresh(pot: QuadPotentialLowRankAdapt, samples):
-    """Chunk-boundary low-rank refresh for the fused engine's epilogue.
-
-    The fused kernel runs the per-chain diagonal Welford on core but
-    freezes the shared factor for the chunk, so the eigenvalue/bulk
-    accumulators see no per-draw projections. At each boundary this adds
-    ONE batch observation — the cross-chain mean of squared projections
-    of the final draw on the *previous* basis (out-of-sample, the same
-    PCA-selection-bias discipline as the per-draw update) — and then
-    runs the pooled refresh (diag pooling + batch subspace iteration).
-
-    Weighting: a cross-chain mean over C *independent* chains carries
-    ~C observations' worth of information, so each boundary adds weight
-    C (a weight-1 scheme was measured to leave the eigenvalues ~2×
-    shrunk after a default tune — adapted step 0.36 vs the per-draw
-    engine's 0.63 on the 16-d spiked target). The 0.5 decay per
-    boundary forgets the early boundaries, whose basis and
-    standardization are still junk; three inner subspace iterations per
-    boundary compensate for the ~10× coarser refresh cadence.
-    """
-    M, var = _pooled_diag_moments(pot)
-    inv_stds = 1.0 / jnp.sqrt(var)
-    Z = (samples - M) * inv_stds  # (C, n)
-    C = float(samples.shape[0])
-    V0 = _orthonormal_columns(jnp.mean(pot.vecs, axis=0))
-    c2 = jnp.mean(
-        jnp.dot(Z, V0, precision="highest",
-                preferred_element_type=Z.dtype) ** 2, axis=0)  # (k,)
-    r2m = jnp.maximum(
-        jnp.mean(jnp.sum(Z * Z, axis=1)) - jnp.sum(c2), 0.0)
-    n_resid = max(samples.shape[1] - pot.rank, 1)
-    decay = 0.5
-    lam_w = jnp.mean(pot.lam_w) * decay + C
-    lam_s2 = jnp.mean(pot.lam_s2, axis=0) * decay + C * c2
-    # alpha_s2's per-draw convention is a *sum over residual dims*; keep
-    # it (the pooled effective-α divides by n_resid)
-    alpha_s2 = jnp.mean(pot.alpha_s2) * decay + C * r2m
-    del n_resid
-    Cn = pot.var.shape[0]
-
-    def b(x):
-        return jnp.broadcast_to(x, (Cn,) + jnp.shape(x))
-
-    pot = pot.replace(lam_w=b(lam_w), lam_s2=b(lam_s2),
-                      alpha_s2=b(alpha_s2))
-    return _pooled_lowrank(pot, samples, inner=3)
 
 
 def cross_chain_potential_pool(potential, tuning, samples=None):

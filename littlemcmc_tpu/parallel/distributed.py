@@ -31,7 +31,8 @@ def initialize_distributed(
 ) -> None:
     """Initialize JAX's distributed runtime (no-op if already initialized).
 
-    On TPU pods with standard env vars, all arguments auto-detect.
+    Where the cluster environment describes the processes, the arguments
+    may be omitted; otherwise pass all three.
     """
     try:
         jax.distributed.initialize(

@@ -1,8 +1,8 @@
 """Quadpotentials (mass matrices / metrics) as immutable JAX pytrees.
 
-TPU-native re-design of the reference's ``littlemcmc/quadpotential.py``.
+Re-design of the reference's ``littlemcmc/quadpotential.py``.
 The reference implements metrics as mutable Python objects updated in
-place per draw; here every metric is a ``flax.struct.dataclass`` pytree
+place per draw; here every metric is a ``pytree.dataclass``
 whose ``update`` returns a *new* state, so the whole adaptation loop can
 live inside ``jax.lax.scan``, be ``vmap``-ed over thousands of chains, and
 be sharded over a ``chains`` mesh axis with ``jax.sharding``.
@@ -23,8 +23,7 @@ Semantics parity notes (file:line cites refer to /root/reference):
 
 Unlike the reference (which mixes float32 metric state with float64
 chain state, ``quadpotential.py:175-177``), dtype here follows the
-position dtype uniformly — float32 by default, which is what TPU VPU/MXU
-units execute natively.
+position dtype uniformly — float32 by default.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ import jax.numpy as jnp
 
 from .math import tree_select
 import numpy as np
-from flax import struct
+from . import pytree
 
 __all__ = [
     "quad_potential",
@@ -85,7 +84,7 @@ def partial_check_positive_definite(C) -> None:
 # ---------------------------------------------------------------------------
 
 
-@struct.dataclass
+@pytree.dataclass
 class WelfordVariance:
     """Online weighted mean/variance (reference ``quadpotential.py:294-343``)."""
 
@@ -134,7 +133,7 @@ class WelfordVariance:
         return self.mean
 
 
-@struct.dataclass
+@pytree.dataclass
 class WelfordCovariance:
     """Online mean/covariance, Stan-math style (reference ``quadpotential.py:563-615``)."""
 
@@ -185,7 +184,7 @@ class WelfordCovariance:
 # ---------------------------------------------------------------------------
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuadPotentialDiag:
     """Fixed diagonal metric; ``v`` is the inverse-mass diagonal.
 
@@ -220,7 +219,7 @@ class QuadPotentialDiag:
         return None
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuadPotentialFull:
     """Fixed dense metric parameterized by a covariance (= inverse mass) matrix.
 
@@ -237,7 +236,7 @@ class QuadPotentialFull:
         return cls(cov=cov, chol=jnp.linalg.cholesky(cov))
 
     def velocity(self, p: jax.Array) -> jax.Array:
-        # exact-f32: bf16 MXU inputs bias the sampled density (the kinetic
+        # exact-f32: bf16 matmul inputs bias the sampled density (the kinetic
         # energy would no longer match the momentum-sampling density)
         return jnp.dot(self.cov, p, precision="highest",
                        preferred_element_type=self.cov.dtype)
@@ -258,7 +257,7 @@ class QuadPotentialFull:
         return None
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuadPotentialFullInv:
     """Fixed dense metric parameterized by the mass (precision) matrix itself.
 
@@ -298,7 +297,7 @@ class QuadPotentialFullInv:
 # ---------------------------------------------------------------------------
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuadPotentialDiagAdapt:
     """Diagonal metric adapted from sample variances, dual-window Welford.
 
@@ -315,7 +314,7 @@ class QuadPotentialDiagAdapt:
     bg: WelfordVariance
     n_samples: jax.Array  # int32 scalar
     window: jax.Array  # int32 scalar, current adaptation window
-    window_multiplier: float = struct.field(pytree_node=False, default=1.0)
+    window_multiplier: float = pytree.field(pytree_node=False, default=1.0)
 
     @classmethod
     def create(
@@ -411,7 +410,7 @@ class QuadPotentialDiagAdapt:
             )
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuadPotentialFullAdapt:
     """Dense metric adapted from sample covariances (Stan-style).
 
@@ -430,9 +429,9 @@ class QuadPotentialFullAdapt:
     n_samples: jax.Array  # int32
     prev_update: jax.Array  # int32
     window: jax.Array  # int32, doubles each swap
-    window_multiplier: float = struct.field(pytree_node=False, default=2.0)
-    update_window: int = struct.field(pytree_node=False, default=1)
-    regularize: bool = struct.field(pytree_node=False, default=True)
+    window_multiplier: float = pytree.field(pytree_node=False, default=2.0)
+    update_window: int = pytree.field(pytree_node=False, default=1)
+    regularize: bool = pytree.field(pytree_node=False, default=True)
 
     @classmethod
     def create(
@@ -470,7 +469,7 @@ class QuadPotentialFullAdapt:
         )
 
     def velocity(self, p: jax.Array) -> jax.Array:
-        # exact-f32: bf16 MXU inputs bias the sampled density (the kinetic
+        # exact-f32: bf16 matmul inputs bias the sampled density (the kinetic
         # energy would no longer match the momentum-sampling density)
         return jnp.dot(self.cov, p, precision="highest",
                        preferred_element_type=self.cov.dtype)
@@ -550,8 +549,8 @@ def _orthonormal_columns(A: jax.Array) -> jax.Array:
     cross-chain pool average per-chain bases without cancellation.
     CholeskyQR over Householder ``jnp.linalg.qr`` because the per-chain
     update runs it *vmapped every draw*: two thin matmuls plus a k×k
-    factorization map onto the TPU MXU, where batched ``geqrf`` does
-    not. The κ(A)² conditioning loss is irrelevant here (A is a basis
+    factorization are dense products, where batched ``geqrf`` is a
+    sequence of small Householder steps. The κ(A)² conditioning loss is irrelevant here (A is a basis
     plus a bounded subspace-iteration step; the jitter floor guards the
     degenerate case).
     """
@@ -582,7 +581,7 @@ def _effective_eigenvalues(
     return jnp.clip(shrunk, 1.0 / clip, clip)
 
 
-@struct.dataclass
+@pytree.dataclass
 class QuadPotentialLowRankAdapt:
     """Spiked adaptive metric: ``Σ̂ = S (α(I−VVᵀ) + VΛVᵀ) S``.
 
@@ -608,7 +607,7 @@ class QuadPotentialLowRankAdapt:
 
     so for large ``n`` it captures the dominant correlations the diagonal
     metric misses at a storage/compute cost that — unlike the dense
-    metric's ``O(n²)`` — fits per-chain in TPU VMEM.
+    metric's ``O(n²)`` — stays ``O(nk)`` per chain.
 
     Adaptation: the diagonal follows ``QuadPotentialDiagAdapt`` exactly
     (dual-window Welford, swap every ``window`` samples). The subspace is
@@ -647,10 +646,10 @@ class QuadPotentialLowRankAdapt:
     buf: jax.Array  # (m, n) ring buffer of recent raw positions
     buf_pos: jax.Array  # int32 scalar, next write slot
     buf_fill: jax.Array  # int32 scalar, valid rows (saturates at m)
-    window_multiplier: float = struct.field(pytree_node=False, default=1.0)
-    rank: int = struct.field(pytree_node=False, default=8)
-    lam_clip: float = struct.field(pytree_node=False, default=100.0)
-    buffer_size: int = struct.field(pytree_node=False, default=32)
+    window_multiplier: float = pytree.field(pytree_node=False, default=1.0)
+    rank: int = pytree.field(pytree_node=False, default=8)
+    lam_clip: float = pytree.field(pytree_node=False, default=100.0)
+    buffer_size: int = pytree.field(pytree_node=False, default=32)
 
     @classmethod
     def create(
@@ -755,10 +754,9 @@ class QuadPotentialLowRankAdapt:
 
         buf = self.buf.at[self.buf_pos].set(sample)
         buf_pos = jnp.mod(self.buf_pos + 1, self.buffer_size)
-        # buf_fill (not n_samples) gates readiness: a fused chunk leaves
-        # n_samples large but the buffer unmaintained — its epilogue
-        # resets buf_fill so a mid-run fallback to this per-draw update
-        # refills before trusting the buffer rows again
+        # buf_fill (not n_samples) gates readiness: a state whose buffer
+        # was reset (buf_fill = 0) refills before trusting the buffer rows
+        # again, however many samples the Welford windows have seen
         buf_fill = jnp.minimum(self.buf_fill + 1, self.buffer_size)
         ready = buf_fill >= self.buffer_size
 

@@ -1,7 +1,7 @@
 """Sampler warnings, generated post-hoc from gathered stats arrays.
 
 The warning taxonomy matches the reference's ``littlemcmc/report.py:20-37``.
-Because the TPU samplers run entirely on device inside ``lax.scan``,
+Because the samplers run entirely on device inside ``lax.scan``,
 warnings are not accumulated per draw; instead :func:`warnings_from_stats`
 reproduces the reference's end-of-run aggregation (``base_hmc.py:202-230``,
 ``nuts.py:226-238``, ``step_sizes.py:101-121``) from the ``(chains, draws)``

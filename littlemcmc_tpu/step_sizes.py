@@ -1,6 +1,6 @@
 """Dual-averaging step-size adaptation as a pure functional state machine.
 
-TPU-native counterpart of the reference's ``littlemcmc/step_sizes.py``
+Counterpart of the reference's ``littlemcmc/step_sizes.py``
 (Nesterov dual averaging, Hoffman & Gelman Algorithm 5). The update math
 matches ``step_sizes.py:71-92`` exactly; the post-tune acceptance-rate
 warning check (``step_sizes.py:101-121``) is computed post-hoc from the
@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 
 from .math import tree_select
-from flax import struct
+from . import pytree
 
 __all__ = ["DualAverageState", "dual_average_init", "dual_average_update"]
 
 
 
 
-@struct.dataclass
+@pytree.dataclass
 class DualAverageState:
     """Per-chain dual-averaging state (reference ``step_sizes.py:49-56``)."""
 

@@ -1,7 +1,7 @@
 """Convergence diagnostics: rank-normalized split R-hat and bulk ESS.
 
 The reference has no diagnostics (users are pointed at ArviZ,
-``docs/tutorials/framework_cookbook.rst:200-206``); the TPU rebuild needs
+``docs/tutorials/framework_cookbook.rst:200-206``); this rebuild needs
 them in-tree because the headline benchmark metric is effective samples
 per second. Implements the rank-normalized split-R̂ and bulk-ESS of
 Vehtari et al. (2021), with Geyer's initial monotone positive sequence

@@ -1,19 +1,15 @@
 """Why does the centered funnel diverge 2.2x more than the reference?
 
-VERDICT r4 item 5: VALIDATION config 4 (Neal's funnel 10-d, centered,
-target 0.9) records divergence rate 0.0381 ours vs 0.0175 reference —
-alongside *better* neck coverage (v std 2.57 vs 2.13, v q05 -3.21 vs
--1.86 against the exact -4.94). Candidate causes, isolated one at a
-time (each arm = one subprocess, because x64 is a process-start flag):
+VALIDATION config 4 (Neal's funnel 10-d, centered, target 0.9) records
+a higher divergence rate than the reference's 0.0175, alongside *better*
+neck coverage (the reference's v q05 is -1.86 against the exact -4.94).
+Candidate causes, isolated one at a time (each arm = one subprocess, run
+one after another, because x64 is a process-start flag):
 
-- arm xla_f32_t090 vs xla_f64_t090: **precision** at a fixed engine
-  (the reference is f64 end-to-end; f32 gradient error in the neck's
-  e^{-v} curvature can produce spurious |dE| > Emax). The XLA tree
-  kernel is the only engine with an f64 path, so the f32 side of the
-  pair runs it too.
-- arm auto_f32_t090: what ships (auto election; engine stamped from
-  perf_report) — the VALIDATION config-4 row as users get it.
-- arm auto_f32_t095: **step size** (smaller step = fewer divergences at
+- arm f32_t090 vs f64_t090: **precision** (the reference is f64
+  end-to-end; f32 gradient error in the neck's e^{-v} curvature can
+  produce spurious |dE| > Emax).
+- arm f32_t095: **step size** (smaller step = fewer divergences at
   equal geometry).
 - every arm also decomposes P(div) = P(neck) * P(div|neck) + ... with
   neck := v < -2 (exact occupancy would be Phi(-2/3) = 0.2525): if our
@@ -34,15 +30,10 @@ sys.path.insert(0, REPO)
 
 CHAINS, TUNE, DRAWS = 512, 1000, 3000
 
-ARMS = {
-    # name: (forced_engine, f64, target_accept); forced_engine None =
-    # what ships (auto election -> fused lane-packed diag on this n=10
-    # model), "xla" = pallas_trajectory=None + fuse_draws=False (the
-    # pure XLA tree kernel, the only engine with an f64 path)
-    "auto_f32_t090": (None, False, 0.9),
-    "xla_f32_t090": ("xla", False, 0.9),
-    "xla_f64_t090": ("xla", True, 0.9),
-    "auto_f32_t095": (None, False, 0.95),
+ARMS = {  # name: (f64, target_accept)
+    "f32_t090": (False, 0.9),
+    "f64_t090": (True, 0.9),
+    "f32_t095": (False, 0.95),
 }
 
 
@@ -50,11 +41,15 @@ def run_arm(name):
     import numpy as np
     import jax
 
+    from littlemcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     def _fmean(x):
         a = np.asarray(x, dtype=np.float64)
         return float(a[np.isfinite(a)].mean())
 
-    engine, f64, target = ARMS[name]
+    f64, target = ARMS[name]
     if f64:
         assert jax.config.jax_enable_x64, "f64 arm needs JAX_ENABLE_X64=1"
     import jax.numpy as jnp
@@ -67,11 +62,7 @@ def run_arm(name):
         logp_dlogp_func=fm.logp_grad, model_ndim=10, tune=TUNE,
         draws=DRAWS, chains=CHAINS, random_seed=4, progressbar=False,
         target_accept=target, compute_convergence_checks=False,
-        progress_every=1000,
     )
-    if engine == "xla":
-        common["pallas_trajectory"] = None
-        common["fuse_draws"] = False
     if f64:
         common["dtype"] = jnp.float64
     rep = {}
@@ -118,7 +109,7 @@ def main():
                        "cores=1 sequential path)"},
            "arms": {}}
     path = os.path.join(REPO, "FUNNEL_DIVERGENCE_STUDY.json")
-    for name, (pallas, f64, target) in ARMS.items():
+    for name, (f64, target) in ARMS.items():
         env = dict(os.environ)
         if f64:
             env["JAX_ENABLE_X64"] = "1"

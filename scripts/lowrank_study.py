@@ -5,7 +5,7 @@ Writes LOWRANK_STUDY.json: adapt_diag vs adapt_full vs adapt_lowrank
 geometry the low-rank metric exists for. Gates of interest: mean tree
 depth (leapfrogs per draw), min bulk ESS per leapfrog (sampler
 efficiency net of metric quality), posterior variance ratios, and
-divergence rates. Run on CPU or TPU: python scripts/lowrank_study.py
+divergence rates. Run on the CPU or a GPU: python scripts/lowrank_study.py
 """
 
 import json
@@ -56,9 +56,14 @@ def run(model, init, cca, chains, tune, draws, seed=11):
 
 def main():
     import jax
+
+    from littlemcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from littlemcmc_tpu import models
 
-    out = {"backend": jax.default_backend(), "device": str(jax.devices()[0]),
+    out = {"platform": jax.devices()[0].platform,
+           "device_kind": jax.devices()[0].device_kind,
            "model": "SpikedGaussian (spikes 400/100/25/9, log-spread scales)",
            "configs": {}}
 

@@ -116,7 +116,7 @@ def main():
     )
 
     meta = {
-        "machine": "benchmark container host CPU (reference has no TPU path)",
+        "machine": "benchmark container host CPU (reference has no accelerator path)",
         "reference": "eigenfoo/littlemcmc v0.2.2, sequential cores=1 path",
         "note": "multiprocessing path of the reference is broken (SURVEY.md §2); "
                 "sequential is its only correct mode",

@@ -1,9 +1,7 @@
 """Experiment: per-chain vs cross-chain pooled dense-metric adaptation.
 
-VERDICT #2 asked either for a per-chain adaptive-dense Pallas fast path
-or a measured justification that pooled adaptation dominates at vector
-chain counts (with auto-promotion). This script is the measurement: the
-same ``adapt_full`` run with per-chain Welford covariance (the
+The measurement behind ``sample()``'s auto-promotion of ``adapt_full``
+to pooled adaptation at vector chain counts: the same ``adapt_full`` run with per-chain Welford covariance (the
 reference's semantics, one chain's 101-sample window per estimate) vs
 ``cross_chain_adapt=True`` (every chain's samples pooled into one
 estimate each tuning step — ``chains×`` more data per window).
@@ -13,8 +11,7 @@ tree depth (metric quality — a better metric yields shallower trees),
 min bulk ESS, and the final adapted covariance's distance to the true
 covariance. Writes POOLED_VS_PERCHAIN.json.
 
-Run: python scripts/pooled_vs_perchain_dense.py  (CPU ok; TPU adds the
-throughput column via the Pallas pooled-dense path)
+Run: python scripts/pooled_vs_perchain_dense.py  (the CPU is enough)
 """
 
 import json
@@ -33,6 +30,10 @@ TUNE, DRAWS = 500, 600
 
 def run(chains, pooled, seed=13):
     import jax
+
+    from littlemcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import littlemcmc_tpu as lmc
     from littlemcmc_tpu import models
     from littlemcmc_tpu.utils.diagnostics import ess_bulk, split_rhat
@@ -86,7 +87,7 @@ def main():
     out = {
         "model": f"CorrelatedGaussian({N}, rho=0.9), adapt_full, "
                  f"tune={TUNE} draws={DRAWS}",
-        "backend": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
         "rows": rows,
     }
     with open(os.path.join(REPO, "POOLED_VS_PERCHAIN.json"), "w") as f:

@@ -1,7 +1,7 @@
 """Render the README benchmark-suite table from BENCH_SUITE.json.
 
-Keeps the README's numbers mechanically tied to the committed artifact
-(VERDICT r4 item 2: no prose number may differ from its artifact).
+Keeps the README's numbers mechanically tied to the suite's artifact:
+no prose number may differ from it.
 Prints the markdown table to stdout; paste into README.md's suite
 section.
 
@@ -26,7 +26,7 @@ LABELS = {
     "eight_schools_10k_chains": "eight schools NUTS, `target_accept=0.95`",
     "hierarchical_regression": "hierarchical regression 42-d (gather model)",
     "stochastic_volatility_503d": "stochastic volatility 503-d",
-    "eight_schools_hmc": "eight schools classic HMC (Pallas HMC kernel)",
+    "eight_schools_hmc": "eight schools classic HMC",
 }
 
 

@@ -1,22 +1,11 @@
-"""Chain-scaling sweep on one chip: transitions/s vs chain count.
+"""Chain-scaling sweep on one device: transitions/s vs chain count.
 
 The reference's only scaling axis is OS processes (at most `cores`
-chains active); here chains are vectorized lanes, so single-chip
-throughput should scale near-linearly until the VPU/MXU saturate.
-Device-only methodology (compile and host transfers excluded, min of 2
-repeats), 100-d correlated Gaussian. Two engines per chain count:
-
-- per-draw diag (the round-1-3 headline engine): lock-step tails bound
-  its scaling — every 512-chain block waits for its deepest tree, and
-  E[max tree] grows with the block count.
-- fused pooled-dense (the round-4+ headline engine, what auto elects on
-  this shape): run with the production tune chunking
-  (base.pooled_tune_schedule boundaries) — the round-3 sweep ran the
-  whole tune as ONE fused chunk, freezing the identity metric for 300
-  draws, which is neither the production path nor a fair measurement.
-
-Rows stamp the engine and chunking that produced them (VERDICT r4
-item 6).
+chains active); here chains are vectorized lanes, so single-device
+throughput should grow with the chain count until the device saturates.
+Device sampling time from ``sample(perf_report=...)`` on a second, warm
+call (the first compiles), 100-d correlated Gaussian, with the diagonal
+metric and the cross-chain pooled dense metric.
 
 Run: python scripts/scaling_bench.py  (writes BENCH_SCALING.json)
 """
@@ -24,142 +13,60 @@ Run: python scripts/scaling_bench.py  (writes BENCH_SCALING.json)
 import json
 import os
 import sys
-import time
-
-import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 N = 100
 TUNE, DRAWS = 300, 300
-CHUNK = 300  # draw-phase / per-draw chunk length
 CHAIN_COUNTS = (256, 1024, 4096, 16384)
-
-
-def _timed(fn, repeats=2):
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        fn()
-        best = min(best, time.perf_counter() - t0)
-    return best
+INITS = ("jitter+adapt_diag", "jitter+adapt_full")
 
 
 def main():
     import jax
-    import jax.numpy as jnp
 
     import littlemcmc_tpu as lmc
     from littlemcmc_tpu import models
-    from littlemcmc_tpu.model import as_logp_grad
-    from littlemcmc_tpu.nuts import build_fused_nuts_runner_factory
-    from littlemcmc_tpu.sampling import (_make_adaptive_potential,
-                                         _make_chunk_runner, _make_init_fn)
+    from littlemcmc_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     model = models.CorrelatedGaussian(N)
-    logp_grad = as_logp_grad(model.logp_grad)
-
+    dev = jax.devices()[0]
     results = {}
     for chains in CHAIN_COUNTS:
-        step = lmc.NUTS(model_ndim=N,
-                        pallas_trajectory=model.pallas_trajectory_spec())
-        key = jax.random.key(7)
-        k_init, k_chains = jax.random.split(key)
-        starts = 2.0 * jax.random.uniform(k_init, (chains, N),
-                                          jnp.float32) - 1.0
-        chain_keys = jax.random.split(k_chains, chains)
-
         row = {"chains": chains}
-        # engine A: per-draw diag
-        kernel = step.build_kernel(logp_grad)
-        init_fn = _make_init_fn(step.config, logp_grad, N, "diag",
-                                jnp.float32, False)
-        states = init_fn(chain_keys, starts)
-        tc = _make_chunk_runner(kernel, TUNE, True, False, False)
-        dc = _make_chunk_runner(kernel, DRAWS, False, False, False)
-
-        def run_perdraw():
-            s, _, _ = tc(states)
-            s2, _, _ = dc(s)
-            jax.block_until_ready(s2.q)
-
-        run_perdraw()  # warm (compile)
-        wall = _timed(run_perdraw)
-        row["per_draw_diag"] = {
-            "engine": "per_draw_diag",
-            "chunks": [TUNE, DRAWS],
-            "device_seconds": round(wall, 2),
-            "transitions_per_sec": round(chains * (TUNE + DRAWS) / wall, 1),
-        }
-
-        # engine B: fused pooled-dense with the production tune schedule
-        try:
-            pot_full = _make_adaptive_potential(N, jnp.zeros(N), "full",
-                                                jnp.float32)
-            fac = build_fused_nuts_runner_factory(
-                step.config, model.pallas_trajectory_spec(), pot_full,
-                N, chains, pooled=True)
-            init_full = _make_init_fn(step.config, logp_grad, N, "full",
-                                      jnp.float32, False)
-            states_f = init_full(chain_keys, starts)
-            sched = getattr(fac, "tune_chunk_schedule", None)
-            plan, t, runners = [], 0, {}
-            while t < TUNE:
-                c = min(TUNE - t, sched(t) if sched else CHUNK)
-                if c not in runners:
-                    runners[c] = fac(c, True, False)
-                plan.append((c, runners[c]))
-                t += c
-            dcf = fac(DRAWS, False, False)
-
-            def run_fused():
-                s = states_f
-                for _, r in plan:
-                    s, _, _ = r(s)
-                s2, _, _ = dcf(s)
-                jax.block_until_ready(s2.q)
-
-            run_fused()  # warm (compiles every distinct chunk length)
-            wallf = _timed(run_fused)
-            row["fused_dense_pooled"] = {
-                "engine": "fused_dense_pooled",
-                "chunks": [c for c, _ in plan] + [DRAWS],
-                "device_seconds": round(wallf, 2),
-                "transitions_per_sec": round(
-                    chains * (TUNE + DRAWS) / wallf, 1),
+        for init in INITS:
+            args = dict(logp_dlogp_func=model.logp_grad, model_ndim=N,
+                        chains=chains, tune=TUNE, draws=DRAWS, init=init,
+                        random_seed=7, progressbar=False,
+                        compute_convergence_checks=False)
+            lmc.sample(**args)  # compiles
+            rep = {}
+            lmc.sample(perf_report=rep, **args)
+            row[rep["engine"]] = {
+                "sample_seconds": rep["sample_seconds"],
+                "transfer_seconds": rep["transfer_seconds"],
+                "transitions_per_sec": chains * (TUNE + DRAWS) / rep["sample_seconds"],
             }
-        except Exception as e:
-            row["fused_dense_pooled"] = {"error": f"{type(e).__name__}: {e}"}
-
         results[str(chains)] = row
         print(json.dumps(row), flush=True)
-        with open(os.path.join(REPO, "BENCH_SCALING.json"), "w") as f:
-            json.dump({"device": str(jax.devices()[0]), "ndim": N,
-                       "tune": TUNE, "draws": DRAWS,
-                       "timing": "device-only, min of 2 repeats, compile "
-                                 "excluded; fused tune uses the production "
-                                 "boundary schedule",
-                       "results": results}, f, indent=2)
 
-    base_c = CHAIN_COUNTS[0]
-    for eng in ("per_draw_diag", "fused_dense_pooled"):
-        base = results[str(base_c)].get(eng, {}).get("transitions_per_sec")
-        if not base:
+    base_c = str(CHAIN_COUNTS[0])
+    for engine, base in results[base_c].items():
+        if not isinstance(base, dict):
             continue
         for c in CHAIN_COUNTS:
-            r = results[str(c)].get(eng)
-            if r and "transitions_per_sec" in r:
-                r["scaling_efficiency_vs_%d" % base_c] = round(
-                    r["transitions_per_sec"] / base / (c / base_c), 3)
+            r = results[str(c)][engine]
+            r["scaling_efficiency_vs_%s" % base_c] = (
+                r["transitions_per_sec"] / base["transitions_per_sec"]
+                / (c / CHAIN_COUNTS[0]))
 
     out = os.path.join(REPO, "BENCH_SCALING.json")
     with open(out, "w") as f:
-        json.dump({"device": str(jax.devices()[0]), "ndim": N,
-                   "tune": TUNE, "draws": DRAWS,
-                   "timing": "device-only, min of 2 repeats, compile "
-                             "excluded; fused tune uses the production "
-                             "boundary schedule",
+        json.dump({"platform": dev.platform, "device_kind": dev.device_kind,
+                   "ndim": N, "tune": TUNE, "draws": DRAWS,
+                   "timing": "perf_report sample_seconds of a warm call",
                    "results": results}, f, indent=2)
     print("wrote", out)
 

@@ -1,19 +1,13 @@
 """Probe: where does the flagship's TUNE wall go, chunk by chunk?
 
-Round-4 numbers (`BENCH_r04.json`): tune = 1.47 s of the 1.78 s sample
-wall (83%) on the 1024-chain pooled-dense flagship, at a draw-phase
-rate that implies mean tree size ~7. 1.47 s / (500 tune draws x 20.4 us
-per executed leapfrog) implies ~144 executed leaves per tune draw — so
-either trees stay deep long after the first pooled-covariance refresh
-(metric boundary cadence too slow / step-size re-adaptation transient)
-or some tune draws pay costs the draw phase does not. This script runs
-the exact flagship config with a per-chunk callback and records, per
-tune chunk: wall seconds, mean/max tree size, mean step size, and the
-divergence count — the measurement that decides whether an early-
-boundary tune schedule (refresh the pooled metric after 5/10/20 draws
-instead of a flat 50) is worth building.
+Trees run deep early in tuning, from jittered starts against the
+weight-10 identity metric, and shallow once the pooled covariance takes
+over. This script runs the flagship pooled-dense config (1024 chains,
+100-d correlated Gaussian) with a per-chunk callback and records, per
+chunk: wall seconds, mean/max tree size, mean step size, and the
+divergence count — the tune/draw split of the work.
 
-Run (on TPU): python scripts/tune_phase_probe.py
+Run: python scripts/tune_phase_probe.py
 """
 
 import json
@@ -36,20 +30,17 @@ def main():
 
     import littlemcmc_tpu as lmc
     from littlemcmc_tpu import models
+    from littlemcmc_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     model = models.CorrelatedGaussian(N)
     common = dict(
         logp_dlogp_func=model.logp_grad, model_ndim=N, chains=CHAINS,
         random_seed=42, progressbar=False, target_accept=0.8,
         init="jitter+adapt_full", cross_chain_adapt=True,
-        pallas_trajectory=model.pallas_trajectory_spec(),
         compute_convergence_checks=False, discard_tuned_samples=False,
     )
-    # warm every program: the full tune length, so every scheduled
-    # chunk length ({10, 30, 50, 100}) compiles here and not inside a
-    # timed row (the first probe run showed a 3.3 s compile folded into
-    # the 100->200 row because the warm tune=100 never reached a
-    # 100-length chunk)
+    # warm every program (one 250-draw chunk per phase) outside the timing
     lmc.sample(tune=TUNE, draws=250, progress_every=250, perf_report={},
                **common)
 

@@ -25,13 +25,17 @@ sys.path.insert(0, os.path.join(REPO, "scripts"))
 def main():
     import jax
 
+    from littlemcmc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from _reference_shim import import_reference
 
     ref = import_reference()
 
-    import littlemcmc_tpu as lmc
-    from littlemcmc_tpu import models
-    from littlemcmc_tpu.utils.diagnostics import ess_bulk
+    import littlemcmc_ours as lmc
+    from littlemcmc_ours import models
+    from littlemcmc_ours.utils.diagnostics import ess_bulk
 
     n = 24
     m = models.SpikedGaussian(n, rank=3, spikes=(64.0, 25.0, 9.0))
@@ -52,22 +56,22 @@ def main():
     ref_depth = float(np.mean(ref_st["depth"]))
 
     t0 = time.perf_counter()
-    tpu_tr, tpu_st = lmc.sample(
+    ours_tr, ours_st = lmc.sample(
         logp_dlogp_func=m.logp_grad, model_ndim=n, tune=1000, draws=3000,
         chains=256, random_seed=7, init="jitter+adapt_lowrank",
         progressbar=False)
-    tpu_secs = time.perf_counter() - t0
-    tpu_tr2 = np.asarray(tpu_tr).reshape(-1, n)
-    tpu_depth = float(np.mean(np.asarray(tpu_st["depth"])))
-    tpu_div = float(np.mean(np.asarray(tpu_st["diverging"])))
+    ours_secs = time.perf_counter() - t0
+    ours_tr2 = np.asarray(ours_tr).reshape(-1, n)
+    ours_depth = float(np.mean(np.asarray(ours_st["depth"])))
+    ours_div = float(np.mean(np.asarray(ours_st["diverging"])))
 
     ref_ess = np.asarray([ess_bulk(ref_tr[:, i][None, :]) for i in range(n)])
     se = np.sqrt(ref_tr.std(0) ** 2 / np.maximum(ref_ess, 1.0)
-                 + tpu_tr2.std(0) ** 2 / tpu_tr2.shape[0])
-    z = np.abs(ref_tr.mean(0) - tpu_tr2.mean(0)) / se
-    sd_ratio = tpu_tr2.std(0) / ref_tr.std(0)
+                 + ours_tr2.std(0) ** 2 / ours_tr2.shape[0])
+    z = np.abs(ref_tr.mean(0) - ours_tr2.mean(0)) / se
+    sd_ratio = ours_tr2.std(0) / ref_tr.std(0)
     exact_sd = np.sqrt(np.diag(Sigma))
-    sd_vs_exact = tpu_tr2.std(0) / exact_sd
+    sd_vs_exact = ours_tr2.std(0) / exact_sd
 
     lines = [
         "## Config 7 — adapt_lowrank vs the reference on a spiked Gaussian "
@@ -75,8 +79,8 @@ def main():
         "",
         f"`models.SpikedGaussian(24, rank=3)` (spikes 64/25/9, log-spread "
         f"scales). reference: 2 chains x 3000 draws, its diag metric "
-        f"({ref_secs:.0f}s); littlemcmc_tpu: 256 chains x 3000 draws, "
-        f"`init=\"jitter+adapt_lowrank\"` ({tpu_secs:.0f}s).",
+        f"({ref_secs:.0f}s); littlemcmc_ours: 256 chains x 3000 draws, "
+        f"`init=\"jitter+adapt_lowrank\"` ({ours_secs:.0f}s).",
         "",
         "The low-rank metric has no reference counterpart; the gate is that",
         "it samples the *same posterior* within joint MC error while doing",
@@ -91,8 +95,8 @@ def main():
         f"| sd ratio vs EXACT (min, max) | {sd_vs_exact.min():.3f}, "
         f"{sd_vs_exact.max():.3f} |",
         f"| mean tree depth: reference (diag) | {ref_depth:.2f} |",
-        f"| mean tree depth: adapt_lowrank | {tpu_depth:.2f} |",
-        f"| divergence rate (ours) | {tpu_div:.4f} |",
+        f"| mean tree depth: adapt_lowrank | {ours_depth:.2f} |",
+        f"| divergence rate (ours) | {ours_div:.4f} |",
         "",
     ]
     assert z.max() < 4.0, f"moment mismatch: max z = {z.max():.2f}"

@@ -1,82 +1,75 @@
-"""Enforce the benchmark suite's quality gates against the artifact.
+"""The benchmark suite's quality gates (``scripts/bench_suite.py``), on
+synthetic rows: each gate passes a row inside it and fails one outside,
+and a row whose config crashed fails."""
 
-`BENCH_SUITE.json` rows carry statistical gates (R-hat, divergence
-rates, the centered funnel's reference-anchored conditional-rate and
-coverage bounds, var ratios). This test makes them CI-enforced instead
-of annotations: a regenerated artifact that violates its own gates
-fails the suite, the same way `tests/test_engine_election.py` pins the
-engine routing to `AB_FUSED.json`.
-"""
-
-import json
 import os
-
-import pytest
+import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATH = os.path.join(REPO, "BENCH_SUITE.json")
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+
+from bench_suite import gate_violations  # noqa: E402
+
+GOOD = {"engine": "nuts_diag", "max_rhat": 1.002, "divergence_rate": 0.0,
+        "var_ratio_mean": 1.001}
 
 
-def _rows():
-    if not os.path.exists(PATH):
-        pytest.skip("BENCH_SUITE.json not generated")
-    with open(PATH) as f:
-        suite = json.load(f)
-    rows = suite.get("results", suite)
-    return {k: v for k, v in rows.items() if "error" not in v}
+def _row(**kw):
+    return dict(GOOD, **kw)
 
 
 def test_rhat_gates():
-    rows = _rows()
-    bad = {}
-    for k, r in rows.items():
-        if r.get("stress_config"):
-            if r.get("max_rhat", 0) > 1.35:
-                bad[k] = r["max_rhat"]
-        elif r.get("max_rhat", 0) > 1.05:
-            bad[k] = r["max_rhat"]
-    assert not bad, f"R-hat gate violations: {bad}"
+    bad = gate_violations({
+        "ok": _row(max_rhat=1.05),
+        "high": _row(max_rhat=1.06),
+        "stress_ok": _row(max_rhat=1.3, stress_config=True),
+        "stress_high": _row(max_rhat=1.4, stress_config=True),
+    })
+    assert set(bad) == {"high", "stress_high"}
 
 
 def test_divergence_gates():
-    rows = _rows()
-    bad = {}
-    for k, r in rows.items():
-        cap = 0.045 if r.get("stress_config") else 0.02
-        if r.get("divergence_rate", 0) > cap:
-            bad[k] = r["divergence_rate"]
-    assert not bad, f"divergence gate violations: {bad}"
+    bad = gate_violations({
+        "ok": _row(divergence_rate=0.02),
+        "high": _row(divergence_rate=0.021),
+        "stress_ok": _row(divergence_rate=0.04, stress_config=True),
+        "stress_high": _row(divergence_rate=0.05, stress_config=True),
+    })
+    assert set(bad) == {"high", "stress_high"}
 
 
 def test_var_ratio_gates():
-    rows = _rows()
-    bad = {}
-    for k, r in rows.items():
-        vr = r.get("var_ratio_mean")
-        tol = 0.05 if r.get("stress_config") else 0.02
-        if vr is not None and abs(vr - 1.0) > tol:
-            bad[k] = vr
-    assert not bad, f"var-ratio gate violations: {bad}"
+    bad = gate_violations({
+        "ok": _row(var_ratio_mean=0.985),
+        "low": _row(var_ratio_mean=0.97),
+        "high": _row(var_ratio_mean=1.03),
+        "no_exact_posterior": {k: v for k, v in GOOD.items()
+                               if k != "var_ratio_mean"},
+        "stress_ok": _row(var_ratio_mean=1.04, stress_config=True),
+    })
+    assert set(bad) == {"low", "high"}
 
 
 def test_centered_funnel_reference_anchored_gates():
-    rows = _rows()
-    r = rows.get("funnel_10d")
-    if r is None:
-        pytest.skip("funnel row absent")
-    if "p_div_given_not_neck" not in r:
-        pytest.skip("row predates the round-5 conditional metrics")
-    # out-of-neck divergence behavior must match the measured cross-arm
-    # band (FUNNEL_DIVERGENCE_STUDY.json: 0.016-0.018 across
-    # engines/dtypes/targets)
-    assert r["p_div_given_not_neck"] <= 0.025, r
-    # coverage floor: at least the reference's own neck coverage — a
-    # sampler can always buy a low marginal rate by not entering the neck
-    assert r["v_std"] >= 2.13, r
+    funnel = dict(stress_config=True, max_rhat=1.2, divergence_rate=0.03)
+    bad = gate_violations({
+        "ok": _row(p_div_given_not_neck=0.02, v_std=2.5, **funnel),
+        "out_of_neck": _row(p_div_given_not_neck=0.03, v_std=2.5, **funnel),
+        "shallow": _row(p_div_given_not_neck=0.01, v_std=2.0, **funnel),
+    })
+    assert set(bad) == {"out_of_neck", "shallow"}
 
 
 def test_every_row_stamps_its_engine():
-    rows = _rows()
-    missing = [k for k, r in rows.items()
-               if not r.get("engine") and "carried_from" not in r]
-    assert not missing, f"rows without an engine stamp: {missing}"
+    bad = gate_violations({"ok": _row(), "unstamped": _row(engine=None)})
+    assert set(bad) == {"unstamped"}
+
+
+def test_crashed_row_fails_the_gate():
+    bad = gate_violations({
+        "ok": _row(),
+        "crashed": {"error": "RuntimeError: out of memory"},
+        "no_metrics": {"engine": "nuts_diag"},
+    })
+    assert set(bad) == {"crashed", "no_metrics"}
+    assert bad["crashed"] == ["error: RuntimeError: out of memory"]

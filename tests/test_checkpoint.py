@@ -85,52 +85,6 @@ def test_checkpoint_roundtrip_pytree(tmp_path):
     )
 
 
-def test_interrupt_between_fused_chunks(tmp_path):
-    """KeyboardInterrupt between FUSED chunks returns the completed
-    chunks + an interrupt checkpoint, and resume finishes the run with
-    the fused factory still active (VERDICT r3 item 9 — the per-draw
-    interrupt path was covered; the fused chunk loop was not)."""
-    from littlemcmc_tpu import models
-
-    model = models.StandardNormal(2)
-    step = lmc.NUTS(model_ndim=2,
-                    pallas_trajectory=model.pallas_trajectory_spec(),
-                    pallas_interpret=True)
-    ckpt = str(tmp_path / "ckpt_fused_int")
-    kwargs = dict(
-        logp_dlogp_func=model.logp_grad, model_ndim=2, draws=80, tune=40,
-        chains=8, random_seed=11, step=step, fuse_draws=True,
-        progressbar=False,
-    )
-
-    calls = []
-
-    def interrupting_cb(iteration, tuning, states, chunk, n_divergences):
-        calls.append((iteration, tuning))
-        if iteration >= 60:  # tune=40 + one collected 20-draw fused chunk
-            raise KeyboardInterrupt
-
-    t_part, s_part = lmc.sample(
-        progress_every=20, callback=interrupting_cb,
-        checkpoint_dir=ckpt, checkpoint_every=20, **kwargs
-    )
-    assert t_part.shape == (8, 20, 2)
-    assert s_part["depth"].shape == (8, 20)
-    assert (60, False) in calls  # the interrupt fired between fused chunks
-
-    from littlemcmc_tpu.utils.checkpoint import latest_checkpoint
-
-    last = latest_checkpoint(ckpt)
-    assert last is not None and last.endswith("step_00000060")
-
-    # resume completes the remaining draws on the fused engine
-    t_rest, s_rest = lmc.sample(checkpoint_dir=ckpt, resume=True, **kwargs)
-    assert t_rest.shape == (8, 60, 2)
-    both = np.concatenate([t_part, t_rest], axis=1)
-    assert np.isfinite(both).all()
-    assert abs(both.mean()) < 0.5 and abs(both.std() - 1.0) < 0.5
-
-
 def test_interrupt_returns_partial_trace_and_checkpoints(tmp_path):
     """KeyboardInterrupt mid-run returns completed chunks + a checkpoint.
 

@@ -5,8 +5,6 @@ default potential dtype, ``/root/reference/littlemcmc/quadpotential.py:175-177``
 Here f64 is opt-in via ``sample(dtype=jnp.float64)`` under JAX's x64
 mode. x64 is a process-global flag, so the run is exercised in a
 subprocess to keep the rest of the suite on the default f32 path.
-The Pallas trajectory kernels are f32-only; ``dtype=float64`` stays on
-the XLA tree (the 'auto' fast path gates on f32 — sampling.py).
 """
 
 import os

@@ -297,9 +297,9 @@ def test_lowrank_checkpoint_resume_bit_identical(tmp_path):
 
 
 def test_buffer_staleness_gate_after_fused_chunk():
-    """A fused chunk leaves n_samples large but the ring buffer
-    unmaintained (its epilogue zeroes buf_fill); the per-chain update
-    must refill the buffer before moving the basis again."""
+    """A state whose ring buffer was reset (buf_fill zeroed) while
+    n_samples stays large must refill the buffer before the per-chain
+    update moves the basis again."""
     n, k, m = 8, 2, 6
     pot = QuadPotentialLowRankAdapt.create(
         n, initial_weight=10.0, rank=k, buffer_size=m)
@@ -307,7 +307,7 @@ def test_buffer_staleness_gate_after_fused_chunk():
     for _ in range(2 * m):
         pot = pot.update(jnp.asarray(rng.standard_normal(n), jnp.float32),
                          jnp.zeros(n, jnp.float32), jnp.asarray(True))
-    # simulate the fused epilogue: counters advanced, buffer stale
+    # counters advanced, buffer reset
     pot = pot.replace(n_samples=jnp.asarray(500, jnp.int32),
                       buf_fill=jnp.zeros_like(pot.buf_fill),
                       buf=jnp.zeros_like(pot.buf))

@@ -201,64 +201,3 @@ def test_adapt_full_auto_promotes_to_pooled_at_vector_chain_counts():
     _, _, st_pc = lmc.sample(cross_chain_adapt=False, **kwargs)
     cov_pc = np.asarray(st_pc.potential.cov)
     assert not np.array_equal(cov_pc[0], cov_pc[1])
-
-
-def test_fused_pooled_dense_over_mesh_e2e(eight_device_mesh):
-    """Pooled adapt_full through the fused engine over 8 devices: every
-    tune chunk carries device-local pooled covariance blocks; the chunk
-    boundary Chan-combines them across devices (psum under GSPMD).
-
-    The extensive-state seeding is the sharp edge: each device's kernel
-    seeds its blocks with 1/B of what it receives, so the driver must
-    pre-scale by 1/D — if it didn't, the combined weight would overcount
-    the chunk-start state D-fold. The summed fg weight is deterministic
-    bookkeeping (independent of the draws), so comparing it against the
-    unsharded per-draw pooled engine pins the exact-combine identity.
-    """
-    model = models.CorrelatedGaussian(4, rho=0.7, scale_range=(0.5, 2.0))
-    step = lmc.NUTS(model_ndim=4,
-                    pallas_trajectory=model.pallas_trajectory_spec(),
-                    pallas_interpret=True)
-    kwargs = dict(
-        logp_dlogp_func=model.logp_grad, model_ndim=4, chains=64,
-        tune=200, draws=200, random_seed=21, step=step, progressbar=False,
-        init="jitter+adapt_full", cross_chain_adapt=True,
-        progress_every=50, return_final_state=True,
-    )
-    tr, st, fs = lmc.sample(mesh=eight_device_mesh, fuse_draws=True,
-                            **kwargs)
-    tr2 = np.asarray(tr).reshape(-1, 4)
-    np.testing.assert_allclose(tr2.var(0), model.true_var, rtol=0.35)
-    assert np.abs(tr2.mean(0)).max() < 0.25
-    assert np.asarray(st["diverging"]).mean() < 0.02
-    cov = np.asarray(fs.potential.cov)
-    np.testing.assert_array_equal(cov, np.broadcast_to(cov[0], cov.shape))
-    _, _, fs_pd = lmc.sample(fuse_draws=False, **kwargs)
-    np.testing.assert_allclose(
-        float(np.asarray(fs.potential.fg.n_samples).sum()),
-        float(np.asarray(fs_pd.potential.fg.n_samples).sum()), rtol=1e-6)
-
-
-def test_fused_engine_over_mesh_e2e(eight_device_mesh):
-    """The fused multi-draw kernel sharded over the 8-device mesh through
-    the public sample() surface (shard_map + per-device PRNG streams +
-    in-kernel adaptation round-trip). Fused draw streams are per-device
-    seeded, so this checks statistics, not sharded==unsharded equality
-    (that contract belongs to the per-draw engines)."""
-    model = models.StandardNormal(3)
-    step = lmc.NUTS(model_ndim=3,
-                    pallas_trajectory=model.pallas_trajectory_spec(),
-                    pallas_interpret=True)
-    trace, stats = lmc.sample(
-        logp_dlogp_func=model.logp_grad, model_ndim=3, chains=64,
-        tune=150, draws=250, random_seed=13, step=step, progressbar=False,
-        mesh=eight_device_mesh, fuse_draws=True,
-    )
-    assert trace.shape == (64, 250, 3)
-    tr = np.asarray(trace).reshape(-1, 3)
-    assert abs(tr.mean()) < 0.08
-    assert np.all(np.abs(tr.var(0) - 1.0) < 0.2), tr.var(0)
-    assert np.asarray(stats["diverging"]).mean() < 0.01
-    # per-device streams must actually differ (PRNG decorrelation): the
-    # first device's chains must not be bit-repeated on the second
-    assert not np.allclose(np.asarray(trace)[0], np.asarray(trace)[8])

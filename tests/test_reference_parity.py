@@ -71,28 +71,28 @@ def test_std_normal_moments_and_stats_match(reference):
     def ref_model(x):
         return -0.5 * np.sum(x ** 2), -x
 
-    def tpu_model(x):
+    def ours_model(x):
         return -0.5 * jnp.sum(x ** 2), -x
 
     ref_trace, ref_stats = _run_reference(reference, ref_model, 1)
-    tpu_trace, tpu_stats = lmc.sample(
-        logp_dlogp_func=tpu_model, model_ndim=1, tune=400, draws=600,
+    ours_trace, ours_stats = lmc.sample(
+        logp_dlogp_func=ours_model, model_ndim=1, tune=400, draws=600,
         chains=2, random_seed=1, progressbar=False,
     )
 
     # Posterior moments within MC error of each other (~1200 draws each).
-    assert abs(ref_trace.mean() - tpu_trace.mean()) < 0.15
-    assert abs(ref_trace.std() - tpu_trace.std()) < 0.12
+    assert abs(ref_trace.mean() - ours_trace.mean()) < 0.15
+    assert abs(ref_trace.std() - ours_trace.std()) < 0.12
 
     # Sampler-statistic distributions: acceptance and tree size regimes.
     assert abs(ref_stats["mean_tree_accept"].mean()
-               - tpu_stats["mean_tree_accept"].mean()) < 0.08
-    assert abs(ref_stats["depth"].mean() - tpu_stats["depth"].mean()) < 0.8
-    assert abs(ref_stats["tree_size"].mean() - tpu_stats["tree_size"].mean()) < 2.0
+               - ours_stats["mean_tree_accept"].mean()) < 0.08
+    assert abs(ref_stats["depth"].mean() - ours_stats["depth"].mean()) < 0.8
+    assert abs(ref_stats["tree_size"].mean() - ours_stats["tree_size"].mean()) < 2.0
     # Step-size adaptation lands in the same regime.
     ref_eps = ref_stats["step_size"][:, -1]
-    tpu_eps = tpu_stats["step_size"][:, -1]
-    assert 0.3 < tpu_eps.mean() / ref_eps.mean() < 3.0
+    ours_eps = ours_stats["step_size"][:, -1]
+    assert 0.3 < ours_eps.mean() / ref_eps.mean() < 3.0
 
 
 def test_correlated_gaussian_moments_match(reference):
@@ -108,18 +108,18 @@ def test_correlated_gaussian_moments_match(reference):
         return 0.5 * x @ g, g
 
     ref_trace, _ = _run_reference(reference, ref_model, 5, tune=500, draws=800)
-    tpu_trace, _ = lmc.sample(
+    ours_trace, _ = lmc.sample(
         logp_dlogp_func=m.logp_grad, model_ndim=5, tune=500, draws=800,
         chains=2, random_seed=2, progressbar=False,
     )
 
     ref_var = ref_trace.reshape(-1, 5).var(axis=0)
-    tpu_var = tpu_trace.reshape(-1, 5).var(axis=0)
+    ours_var = ours_trace.reshape(-1, 5).var(axis=0)
     # Both recover the true marginal variances within sampling error...
-    np.testing.assert_allclose(tpu_var, m.true_var, rtol=0.5)
+    np.testing.assert_allclose(ours_var, m.true_var, rtol=0.5)
     # ...and agree with each other.
-    np.testing.assert_allclose(tpu_var, ref_var, rtol=0.6)
-    assert abs(ref_trace.mean() - tpu_trace.mean()) < 0.4
+    np.testing.assert_allclose(ours_var, ref_var, rtol=0.6)
+    assert abs(ref_trace.mean() - ours_trace.mean()) < 0.4
 
 
 def test_hmc_parity(reference):
@@ -129,7 +129,7 @@ def test_hmc_parity(reference):
     def ref_model(x):
         return -0.5 * np.sum(x ** 2), -x
 
-    def tpu_model(x):
+    def ours_model(x):
         return -0.5 * jnp.sum(x ** 2), -x
 
     ref_step_cls = reference.HamiltonianMC
@@ -139,13 +139,13 @@ def test_hmc_parity(reference):
         chains=2, cores=1, progressbar=False, random_seed=3,
         step=ref_step_cls(logp_dlogp_func=ref_model, model_ndim=1),
     )
-    tpu_trace, tpu_stats = lmc.sample(
-        logp_dlogp_func=tpu_model, model_ndim=1, tune=400, draws=600,
+    ours_trace, ours_stats = lmc.sample(
+        logp_dlogp_func=ours_model, model_ndim=1, tune=400, draws=600,
         chains=2, random_seed=3, progressbar=False,
         step=lmc.HamiltonianMC(model_ndim=1),
     )
     ref_trace = np.asarray(ref_trace)
-    assert abs(ref_trace.std() - tpu_trace.std()) < 0.15
-    assert abs(ref_stats["accept"].mean() - tpu_stats["accept"].mean()) < 0.25
+    assert abs(ref_trace.std() - ours_trace.std()) < 0.15
+    assert abs(ref_stats["accept"].mean() - ours_stats["accept"].mean()) < 0.25
     assert abs(float(np.mean(ref_stats["accepted"]))
-               - float(tpu_stats["accepted"].mean())) < 0.2
+               - float(ours_stats["accepted"].mean())) < 0.2
